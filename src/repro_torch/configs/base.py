@@ -1,0 +1,56 @@
+"""Architecture configuration schema of the port's dense decode path.
+
+A subset of ``repro.configs.base``: the PyTorch port imports nothing of
+the JAX package, so it keeps its own copy of the fields the dense decode
+step reads, and of the dense part of :func:`reduced`, so that both
+packages build the same shapes from the same config. A slice that ports
+another family (MoE, SSM, hybrid, ...) adds that family's fields.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    qkv_bias: bool = False                  # qwen2-style QKV bias
+    qk_norm: bool = False                   # qwen3-style per-head RMSNorm
+    sliding_window: Optional[int] = None    # SWA (h2o-danube: 4096)
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    # provenance
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+
+def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """A tiny same-family config for CPU smoke tests (the dense case of
+    the reference's ``reduced``: same shapes for the same config)."""
+    base = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        d_ff=128,
+        vocab=256,
+        head_dim=16,
+    )
+    if cfg.sliding_window:
+        base["sliding_window"] = 32
+    base.update(overrides)
+    return dataclasses.replace(cfg, **base)

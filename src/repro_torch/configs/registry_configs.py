@@ -1,0 +1,16 @@
+"""Arch-id -> ArchConfig registry of the port: the dense configs whose
+decode step needs nothing beyond ``models/transformer.decode_step``."""
+from . import h2o_danube_1_8b, minitron_8b, qwen2_7b, qwen3_14b
+
+ALL_ARCHS = {
+    "qwen2-7b": qwen2_7b.CONFIG,
+    "minitron-8b": minitron_8b.CONFIG,
+    "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
+    "qwen3-14b": qwen3_14b.CONFIG,
+}
+
+
+def get_config(arch_id: str):
+    if arch_id not in ALL_ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ALL_ARCHS)}")
+    return ALL_ARCHS[arch_id]

@@ -1,0 +1,131 @@
+"""Serving driver: continuous-batching decode on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+        --requests 12 --slots 4                 # on cuda (the default)
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
+``--device``. It reproduces the reference's behaviour exactly, including
+three quirks: only ``req.prompt[0]`` is fed at admission; every slot
+decodes at one shared host-side ``pos`` that clamps at ``max_seq - 1``; so
+a request admitted into a reused slot attends to the KV its predecessor
+left there. ``pos`` stays a host int, so a step reads nothing back from the
+device but the sampled tokens.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..configs.base import reduced
+from ..configs.registry_configs import ALL_ARCHS
+from ..models.registry import get_adapter
+from ..serve.batching import ContinuousBatcher, Request
+from ..serve.kv_cache import ROW_BYTES
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
+
+def make_requests(n: int, prompt_len: int, max_new: int, vocab: int,
+                  seed: int) -> list[Request]:
+    """The reference driver's requests: prompts drawn from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid, rng.integers(1, vocab, size=(prompt_len,),
+                                      dtype=np.int32),
+                    max_new_tokens=max_new) for rid in range(n)]
+
+
+@dataclass
+class ServeRun:
+    batcher: ContinuousBatcher
+    #: as the reference counts it: slots still busy after each step's
+    #: retirements, so each request's last token is left out.
+    tokens_out: int
+    seconds: float
+    step_seconds: list
+
+
+def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
+          device) -> ServeRun:
+    """Answer ``requests`` with greedy decoding over ``slots`` batch slots
+    and a ``max_seq`` KV cache on ``device``. Each step's time is taken on
+    the host clock after the sampled tokens reach the host, so it includes
+    the device's work."""
+    device = resolve_device(device)
+    adapter = get_adapter(cfg)
+    batcher = ContinuousBatcher(slots)
+    for req in requests:
+        batcher.submit(req)
+    cache = adapter.init_decode_state(slots, max_seq, device=device)
+    cur = np.zeros((slots, 1), np.int32)
+    pos = 0
+    tokens_out = 0
+    step_seconds = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        while not batcher.idle():
+            ts = time.perf_counter()
+            for slot, req in batcher.schedule():
+                cur[slot, 0] = req.prompt[0]
+            tokens = torch.from_numpy(cur).to(device)
+            logits, cache = adapter.decode(params, {"tokens": tokens}, cache,
+                                           pos)
+            out = greedy_sample(logits).cpu().numpy()
+            finished = batcher.record_tokens(out)
+            for slot in range(slots):
+                if batcher.active[slot] is not None:
+                    cur[slot, 0] = out[slot]
+            tokens_out += sum(1 for r in batcher.active if r is not None)
+            pos = min(pos + 1, max_seq - 1)
+            step_seconds.append(time.perf_counter() - ts)
+            for req in finished:
+                print(f"[serve] request {req.rid} done "
+                      f"({len(req.out_tokens)} tokens)")
+    return ServeRun(batcher, tokens_out, time.perf_counter() - t0,
+                    step_seconds)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b", choices=sorted(ALL_ARCHS))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = ALL_ARCHS[args.arch]
+    if args.reduced:
+        cfg = reduced(cfg)
+    requests = make_requests(args.requests, args.prompt_len, args.max_new,
+                             cfg.vocab, args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = get_adapter(cfg).init(gen)
+    run = serve(cfg, params, requests, args.slots, args.max_seq, device)
+
+    b = run.batcher
+    print(f"[serve] {len(b.completed)} requests, {b.steps} decode steps, "
+          f"occupancy {b.occupancy:.2f}, "
+          f"{run.tokens_out / max(run.seconds, 1e-9):.1f} tok/s on {device}")
+    kv_bytes_tok = 2 * cfg.n_layers * cfg.n_kv_heads \
+        * cfg.resolved_head_dim * 2
+    print(f"[serve] KV bytes/token/all-layers = {kv_bytes_tok} "
+          f"({kv_bytes_tok / ROW_BYTES:.2f} DRAM rows)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

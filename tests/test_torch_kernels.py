@@ -1,0 +1,170 @@
+"""The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
+against the JAX package's Pallas kernels (interpret mode) and oracles, at
+tests/test_kernels.py's shapes and tolerances; and the tiling the wrappers
+pick for the CUDA kernels."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_decode.kernel import flash_decode as jax_flash_decode
+from repro.kernels.flash_decode.ref import flash_decode_ref as jax_fd_ref
+from repro.kernels.rowstream_matmul.kernel import (
+    rowstream_matmul as jax_rowstream)
+from repro.kernels.rowstream_matmul.ref import rowstream_matmul_ref as jax_rm_ref
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.rowstream_matmul import kernel as rm_kernel
+from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
+from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same float32 values as a JAX array and a tensor of `dtype`
+    (both round float32 to bf16 to nearest even: identical bits)."""
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _close(port, ref, tol, atol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=tol, atol=atol)
+
+
+# --- rowstream matmul --------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (64, 512, 256),
+                                   (256, 1024, 128), (8, 256, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rowstream_matmul_matches_jax(m, k, n, dtype):
+    rng = np.random.default_rng(m * k + n)
+    xj, xt = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    wj, wt = _pair(rng.standard_normal((k, n), np.float32), dtype)
+    out = rowstream_matmul(xt, wt)
+    assert out.dtype == xt.dtype and out.shape == (m, n)
+    assert torch.equal(out, rowstream_matmul_ref(xt, wt))
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    _close(out, jax_rowstream(xj, wj), tol, tol * 8)
+    _close(out, jax_rm_ref(xj, wj), tol, tol * 8)
+
+
+def test_rowstream_matmul_rejects_bad_inputs():
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError):
+        rowstream_matmul(x, torch.zeros((9, 3)))
+    with pytest.raises(TypeError):
+        rowstream_matmul(x, torch.zeros((8, 3), dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        rowstream_matmul(x, torch.zeros((3, 8)).T)
+    with pytest.raises(ValueError):
+        rowstream_matmul(torch.zeros((0, 8)), torch.zeros((8, 3)))
+
+
+# qwen2-7b's decode products at 4 slots, and odd shapes.
+@pytest.mark.parametrize("m,k,n", [(4, 3584, 3584), (4, 3584, 512),
+                                   (4, 3584, 18944), (4, 18944, 3584),
+                                   (4, 3584, 152064), (1, 100, 37),
+                                   (33, 1000, 1000), (4, 64, 4100)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rowstream_plan_covers_and_keeps_rows(m, k, n, itemsize):
+    vec, threads, mt, kchunk, splits = rm_kernel.plan(m, k, n, itemsize,
+                                                      True, 132)
+    assert threads % 32 == 0 and 32 <= threads <= rm_kernel.MAX_THREADS
+    assert mt >= min(m, 8) and mt in (1, 2, 4, 8)
+    assert (splits - 1) * kchunk < k <= splits * kchunk    # K covered once
+    assert splits <= 65535
+    tile_bytes = threads * vec * itemsize
+    if n % (16 // itemsize) == 0:
+        assert vec * itemsize == 16
+        # A column tile is the whole row width, or exactly one DRAM row.
+        assert tile_bytes == 4096 or tile_bytes >= n * itemsize
+    else:
+        assert vec == 1
+
+
+# --- flash decode ------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,hkv,s,d", [(2, 8, 2, 128, 64),
+                                         (1, 4, 4, 256, 64),
+                                         (3, 16, 4, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_matches_jax(b, h, hkv, s, d, dtype):
+    rng = np.random.default_rng(b * h + s + d)
+    qj, qt = _pair(rng.standard_normal((b, h, d), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((b, hkv, s, d), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((b, hkv, s, d), np.float32), dtype)
+    pos = s // 2
+    out = flash_decode(qt, kt, vt, pos)
+    assert out.dtype == qt.dtype and out.shape == (b, h, d)
+    assert torch.equal(out, flash_decode_ref(qt, kt, vt, pos))
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    pj = jnp.array(pos, jnp.int32)
+    _close(out, jax_flash_decode(qj, kj, vj, pj), tol, tol)
+    _close(out, jax_fd_ref(qj, kj, vj, pj), tol, tol)
+
+
+@pytest.mark.parametrize("pos", [0, 37, 63, 64, 100])
+def test_flash_decode_fp32_query_bf16_cache(pos):
+    """The fp32 model keeps q in fp32 against the bf16 cache; pos >= S (a
+    full ring buffer) attends to every slot."""
+    rng = np.random.default_rng(pos)
+    b, h, hkv, s, d = 2, 6, 2, 64, 16
+    q = rng.standard_normal((b, h, d), np.float32)
+    kj, kt = _pair(rng.standard_normal((b, hkv, s, d), np.float32),
+                   "bfloat16")
+    vj, vt = _pair(rng.standard_normal((b, hkv, s, d), np.float32),
+                   "bfloat16")
+    out = flash_decode(torch.from_numpy(q), kt, vt, pos)
+    assert out.dtype == torch.float32
+    ref = jax_fd_ref(jnp.asarray(q), kj, vj, jnp.array(pos, jnp.int32))
+    _close(out, ref, 1e-5, 1e-5)
+
+
+def test_flash_decode_masks_future():
+    """Slots beyond pos are unwritten garbage and must not leak."""
+    rng = np.random.default_rng(7)
+    b, h, hkv, s, d = 1, 4, 2, 64, 32
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32))
+    kc = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
+    vc = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
+    out1 = flash_decode(q, kc, vc, 10)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, :, 11:] = 1e9
+    vc2[:, :, 11:] = -1e9
+    out2 = flash_decode(q, kc2, vc2, 10)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6)
+
+
+def test_flash_decode_rejects_bad_inputs():
+    q = torch.zeros((1, 4, 16))
+    kc = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError):
+        flash_decode(q, kc, kc, -1)
+    with pytest.raises(ValueError):
+        flash_decode(torch.zeros((1, 3, 16)), kc, kc, 0)
+    with pytest.raises(TypeError):
+        flash_decode(q.bfloat16(), kc, kc, 0)
+    with pytest.raises(ValueError):
+        flash_decode(torch.zeros((1, 4, 512)), torch.zeros((1, 2, 8, 512)),
+                     torch.zeros((1, 2, 8, 512)), 0)
+    with pytest.raises(ValueError):
+        flash_decode(q, kc[:, :, :0], kc[:, :, :0], 0)
+
+
+@pytest.mark.parametrize("n_valid,d,itemsize", [(128, 128, 2), (1, 128, 2),
+                                                (4096, 128, 2), (200, 80, 2),
+                                                (33, 16, 4), (1000, 100, 2)])
+def test_flash_decode_chunks_start_on_rows(n_valid, d, itemsize):
+    chunk = fd_kernel.pick_chunk(n_valid, 16, d, itemsize, 132)
+    assert chunk >= fd_kernel.TILE
+    row_tokens = 4096 // np.gcd(d * itemsize, 4096)
+    if row_tokens <= fd_kernel.MAX_ROW_TOKENS:
+        assert (chunk * d * itemsize) % 4096 == 0
+    nsplit = -(-n_valid // chunk)
+    assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
