@@ -5,22 +5,36 @@ GPU, from the root of a checkout:
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/csrc`` with nvcc and prints the build time.
+   ``src/repro_torch/csrc`` with nvcc (one per source, in parallel) and
+   prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes of qwen2-7b's decode step and at odd ones, with the tolerances of
-   tests/test_kernels.py.
-3. Serves qwen2-7b at full width in bf16 with random weights from a seed,
-   through ``repro_torch.launch.serve`` with the driver's defaults (12
-   requests, 4 slots, prompt 16, 24 new tokens, max_seq 128), and shows
-   through the launch counters that every step went through both kernels.
-   One decode step's logits on the kernel path are held against the same
-   step with both kernels' plain versions; the plain path also serves the
-   same requests, to count the greedy tokens that agree.
-4. Times each kernel, its plain version and one library call (a yardstick
-   only; the port never calls it) over the kernel's launches of one decode
-   step: the kernel's wall time on the device's clock from CUDA events,
-   then device times from torch.profiler, and a profiled run of a few
-   steps that splits a step's device time by kernel.
+   shapes of the main paths and at odd ones: flash_decode and
+   rowstream_matmul with the tolerances of tests/test_kernels.py, rwkv_scan
+   at its test shapes, with extreme decay and with rwkv6's own decays,
+   ragged lengths, bf16 inputs and rwkv6-3b's full width.
+3. Drives the main paths at full width in bf16 with random weights from a
+   seed, each with the launch counters set to 0 just before it and read
+   just after:
+   * qwen2-7b served through ``repro_torch.launch.serve`` with the
+     driver's defaults (12 requests, 4 slots, prompt 16, 24 new tokens,
+     max_seq 128): every step goes through flash_decode and
+     rowstream_matmul. One decode step's logits are held against the same
+     step on the plain path, which also serves the same requests, to count
+     the greedy tokens that agree. The weights are then freed.
+   * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
+     launch per layer, logits held against the plain path's; (b) the first
+     64 tokens of those prompts stepped through ``decode_step``, held
+     against forward's logits; (c) served with the driver's defaults,
+     every weight product through rowstream_matmul.
+4. Times each kernel, its plain version and, where there is one, one
+   library call (a yardstick only; the port never calls it) over the
+   kernel's launches of one decode step (flash_decode, rowstream_matmul)
+   or one forward (rwkv_scan): the kernel's wall time on the device's clock
+   from CUDA events, then device times from torch.profiler, and profiled
+   splits of an rwkv6-3b forward and of a decode step of each model. All
+   host-clock and CUDA-event timings come before the first use of the
+   profiler, so the qwen2-7b weights are made again from the same seed for
+   its profiled part.
 5. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +67,16 @@ SEED = 0
 # Device kernels of each port kernel, by name (csrc/*.cu).
 FD_KERNELS = ("flash_decode_split", "flash_decode_combine")
 RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
+RS_KERNELS = ("rwkv_scan_kernel",)
+# Products of one decode step, per layer (plus the head).
+QWEN_PRODUCTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                 ("attn", "wo"), ("ffn", "w_gate"), ("ffn", "w_up"),
+                 ("ffn", "w_down")]
+RWKV_PRODUCTS = ["wr", "wk", "wv", "wg", "w_lora_a", "w_lora_b", "wo", "ck",
+                 "cv", "cr"]
+# The serve driver's defaults, and rwkv6-3b's prompt batch.
+SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
+PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
 
 
 class SmokeFailure(RuntimeError):
@@ -133,14 +157,16 @@ def plain_path():
     the duration (a comparison only; the port itself never does this)."""
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
-    from repro_torch.models import layers
-    saved = layers.flash_decode, layers.rowstream_matmul
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+    from repro_torch.models import layers, rwkv6
+    saved = layers.flash_decode, layers.rowstream_matmul, rwkv6.rwkv_scan
     layers.flash_decode = flash_decode_ref
     layers.rowstream_matmul = rowstream_matmul_ref
+    rwkv6.rwkv_scan = rwkv_scan_ref
     try:
         yield
     finally:
-        layers.flash_decode, layers.rowstream_matmul = saved
+        layers.flash_decode, layers.rowstream_matmul, rwkv6.rwkv_scan = saved
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -150,12 +176,15 @@ def check_rowstream(torch, dev) -> float:
     from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # qwen2-7b's and rwkv6-3b's decode products at 4 slots.
     path = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
-            (4, 18944, 3584), (4, 3584, 152064)]
+            (4, 18944, 3584), (4, 3584, 152064),
+            (4, 2560, 2560), (4, 2560, 64), (4, 64, 2560), (4, 2560, 8960),
+            (4, 8960, 2560), (4, 2560, 65536)]
     odd = [(m, k, n) for m in (1, 4, 33)
            for k, n in ((1000, 1000), (100, 37), (777, 4100), (64, 2056))]
     cases = [(s, "bfloat16") for s in path + odd] \
-        + [(s, "float32") for s in path[:2] + odd]
+        + [(s, "float32") for s in path[:2] + path[5:7] + odd]
     worst_path = 0.0
     for (m, k, n), dt in cases:
         dtype = getattr(torch, dt)
@@ -232,20 +261,98 @@ def check_flash_decode(torch, dev) -> float:
     return worst_path
 
 
+def scan_inputs(torch, gen, b, s, H, hd, dtype="float32", decay="test"):
+    """r, k, v, w (b, s, H, hd) and u (H, hd) on the generator's device.
+    decay "test": w in (0.4, 0.9) and u at 0.1, as tests/test_kernels.py
+    draws them; "extreme": w 1e-35 at 40 % of the entries (0.9 elsewhere)
+    and u zero; "model": w = exp(-exp(-5 + 0.5 n)), about 0.993 as rwkv6's
+    init gives it, so the carried state dominates the output, and u zero."""
+    dev = gen.device
+    shape = (b, s, H, hd)
+    r, k, v, n = (torch.randn(shape, generator=gen, device=dev)
+                  for _ in range(4))
+    u = torch.zeros((H, hd), device=dev)
+    if decay == "extreme":
+        w = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.4,
+                        1e-35, 0.9)
+    elif decay == "model":
+        w = torch.exp(-torch.exp(-5.0 + 0.5 * n))
+    else:
+        w = torch.sigmoid(n) * 0.5 + 0.4
+        u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+    return [x.to(getattr(torch, dtype)) for x in (r, k, v, w)] + [u]
+
+
+def check_rwkv_scan(torch, dev) -> float:
+    """Returns the largest error at rwkv6-3b's full-width shape."""
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    full = (PREFILL_B, PREFILL_S, 40, 64)
+    # (shape, chunk, decay, dtype): tests/test_kernels.py's three shapes
+    # and its extreme-decay case; the full width; ragged s at the model's
+    # head dim (the default chunk of 16 does not divide them), with
+    # extreme and with the model's decays too; bf16 inputs.
+    cases = [((2, 64, 3, 16), 16, "test", "float32"),
+             ((1, 128, 2, 32), 32, "test", "float32"),
+             ((2, 48, 4, 16), 8, "test", "float32"),
+             ((1, 32, 2, 16), 8, "extreme", "float32"),
+             (full, None, "test", "float32")]
+    cases += [((2, s, 3, 64), None, "test", "float32") for s in (1, 6, 1000)]
+    cases += [((2, 1000, 3, 64), None, "extreme", "float32"),
+              ((2, 1000, 3, 64), None, "model", "float32"),
+              ((2, 64, 3, 16), 16, "test", "bfloat16"),
+              ((2, 1000, 3, 64), None, "test", "bfloat16"),
+              (full, None, "test", "bfloat16")]
+    worst_full = 0.0
+    for shape, chunk, decay, dt in cases:
+        x = scan_inputs(torch, gen, *shape, dtype=dt, decay=decay)
+        o, S = rwkv_scan(*x, chunk=chunk)
+        torch.cuda.synchronize()
+        ro, rS = rwkv_scan_ref(*x)
+        check(bool(o.isfinite().all()) and bool(S.isfinite().all()),
+              f"rwkv_scan {shape} {dt} decay {decay}: not finite")
+        atol = 2e-3 if decay == "extreme" else 1e-3
+        # o in bf16 rounds once from fp32 sums taken in another order:
+        # tests/test_kernels.py's bf16 tolerance, 2e-2.
+        o_tol = (2e-2, 2e-2) if dt == "bfloat16" else (1e-3, atol)
+        err_o = (o.float() - ro.float()).abs()
+        err_s = (S - rS).abs()
+        ok = bool((err_o <= o_tol[1] + o_tol[0] * ro.float().abs()).all()) \
+            and bool((err_s <= atol + 1e-3 * rS.abs()).all())
+        check(ok and o.dtype == x[0].dtype and o.shape == x[0].shape
+              and S.dtype == torch.float32,
+              f"rwkv_scan {shape} chunk {chunk} {dt} decay {decay}: "
+              f"max err o {err_o.max().item()}, S {err_s.max().item()}")
+        if shape == full and dt == "float32":
+            worst_full = max(err_o.max().item(), err_s.max().item())
+    # No backward kernel: a CUDA input that requires grad raises.
+    x = scan_inputs(torch, gen, 1, 4, 1, 16)
+    x[0].requires_grad_(True)
+    try:
+        rwkv_scan(*x)
+    except RuntimeError:
+        pass
+    else:
+        raise SmokeFailure("rwkv_scan ran on a CUDA input that requires "
+                           "grad")
+    print(f"[kernels] rwkv_scan: {len(cases)} cases agree with the plain "
+          f"version (fp32 rtol/atol 1e-3, atol 2e-3 with decays of 1e-35, "
+          f"all finite; decays near 0.993 as rwkv6's init gives them; bf16 "
+          f"o 2e-2); a grad-requiring input raises; max "
+          f"abs err at rwkv6-3b's full width {worst_full!r}")
+    return worst_full
+
+
 # --- timing over one decode step's launches ----------------------------------
 
-def rowstream_work(torch, cfg, params, slots: int) -> dict:
-    """The 197 products of one qwen2-7b decode step, in step order, each
-    layer's own weights (so every weight is cold in L2, as in the step):
-    on the kernel, on the plain version and on torch.matmul."""
+def rowstream_work(torch, ws: list, slots: int) -> dict:
+    """The products of one decode step on weights `ws`, in step order,
+    each layer's own weights (so every weight is cold in L2, as in the
+    step): on the kernel, on the plain version and on torch.matmul."""
     from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
-    dev = params["embed"].device
-    blocks = params["blocks"]
-    names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-             ("ffn", "w_gate"), ("ffn", "w_up"), ("ffn", "w_down")]
-    ws = [blocks[a][w][i] for i in range(cfg.n_layers) for a, w in names]
-    ws.append(params["lm_head"])
+    dev = ws[0].device
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     xs = {k: torch.randn((slots, k), generator=gen, device=dev).to(
         torch.bfloat16) for k in {w.shape[0] for w in ws}}
@@ -262,6 +369,56 @@ def rowstream_work(torch, cfg, params, slots: int) -> dict:
             "reps": 5, "kernel": run(rowstream_matmul),
             "plain": run(rowstream_matmul_ref), "library": run(torch.matmul),
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def qwen_weights(cfg, params) -> list:
+    """qwen2-7b's 197 decode products: 7 per layer and the head."""
+    blocks = params["blocks"]
+    return [blocks[a][w][i] for i in range(cfg.n_layers)
+            for a, w in QWEN_PRODUCTS] + [params["lm_head"]]
+
+
+def rwkv_weights(cfg, params) -> list:
+    """rwkv6-3b's 321 decode products: 10 per layer and the head."""
+    blocks = params["blocks"]
+    return [blocks[w][i] for i in range(cfg.n_layers)
+            for w in RWKV_PRODUCTS] + [params["lm_head"]]
+
+
+def rwkv_scan_ops(b: int, s: int, H: int, hd: int, C: int) -> float:
+    """Operations of the chunked scan at chunk C (an exp counts as one):
+    per chunk of each (b, h), the strictly lower C x C matrix (sub, exp,
+    two multiply-adds per channel), its diagonal, the logs, cumsum and
+    decays, A v, the state term r S, and the state update."""
+    per_chunk = (C * (C - 1) // 2 * hd * 4 + C * hd * 2 + C * hd * 6
+                 + C * (C + 1) // 2 * hd * 2 + C * hd * hd * 2
+                 + hd * hd * (1 + 2 * C))
+    return b * H * -(-s // C) * per_chunk
+
+
+def scan_work(torch, launches: list) -> dict:
+    """The rwkv_scan launches of one rwkv6-3b forward, on the inputs the
+    forward gave them: on the kernel and on the plain version. No single
+    PyTorch call computes this recurrence, so there is no library time."""
+    from repro_torch.kernels.rwkv_scan.kernel import default_chunk
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+
+    def run(fn):
+        return lambda: [fn(*x) for x in launches]
+
+    nbytes, ops = 0, 0
+    for r, k, v, w, u in launches:
+        b, s, H, hd = r.shape
+        nbytes += sum(t.numel() * t.element_size() for t in (r, k, v, w, u))
+        nbytes += r.numel() * r.element_size() + b * H * hd * hd * 4
+        ops += rwkv_scan_ops(b, s, H, hd, default_chunk(hd))
+    bound_ms, bound_by = bound(nbytes, ops, "float32")
+    return {"launches_per_step": len(launches), "names": RS_KERNELS,
+            "reps": 3, "plain_reps": 1, "kernel": run(rwkv_scan),
+            "plain": run(rwkv_scan_ref), "library": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
 
 
 def flash_work(torch, cfg, slots: int, max_seq: int) -> dict:
@@ -304,8 +461,11 @@ def flash_work(torch, cfg, slots: int, max_seq: int) -> dict:
 
 # --- phase 3: serve ------------------------------------------------------------
 
-def serve_phase(torch, cfg, params, slots, max_seq, n_requests, prompt_len,
-                max_new) -> dict:
+def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
+                max_seq=MAX_SEQ, n_requests=N_REQ, prompt_len=PROMPT_LEN,
+                max_new=MAX_NEW) -> dict:
+    """Serve with the launch counters set to 0 just before and read just
+    after; `per_step` is each kernel's launches per decode step."""
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.launch.serve import make_requests, serve
     requests = make_requests(n_requests, prompt_len, max_new, cfg.vocab,
@@ -321,12 +481,10 @@ def serve_phase(torch, cfg, params, slots, max_seq, n_requests, prompt_len,
         check(len(req.out_tokens) == max_new
               and all(0 <= t < V for t in req.out_tokens),
               f"request {req.rid}: tokens {req.out_tokens}")
-    check(counts["flash_decode"] == cfg.n_layers * b.steps,
-          f"flash_decode launched {counts['flash_decode']} times in "
-          f"{b.steps} steps")
-    check(counts["rowstream_matmul"] == (7 * cfg.n_layers + 1) * b.steps,
-          f"rowstream_matmul launched {counts['rowstream_matmul']} times in "
-          f"{b.steps} steps")
+    for name, n in per_step.items():
+        check(counts[name] == n * b.steps,
+              f"{cfg.name} serve: {name} launched {counts[name]} times in "
+              f"{b.steps} steps, expected {n} per step")
     generated = sum(len(r.out_tokens) for r in b.completed)
     warm = sorted(run.step_seconds[1:])
     return {"run": run, "counts": counts, "steps": b.steps,
@@ -371,7 +529,8 @@ def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
     return diff
 
 
-def step_breakdown(torch, cfg, params, slots, max_seq, steps=5) -> dict:
+def step_breakdown(torch, cfg, params, slots=SLOTS, max_seq=MAX_SEQ,
+                   steps=5) -> dict:
     """Device time of one decode step (after the first few), by kernel
     group, from torch.profiler over `steps` steps that each end with the
     sampled tokens on the host."""
@@ -400,6 +559,205 @@ def step_breakdown(torch, cfg, params, slots, max_seq, steps=5) -> dict:
             "flash_ms": fd, "other_ms": total - rm - fd}
 
 
+def rwkv_forward_phase(torch, cfg, params) -> dict:
+    """rwkv6-3b in bf16: (a) forward on PREFILL_B x PREFILL_S prompt
+    tokens with the launch counters set to 0 just before and read just
+    after, then timed on the host clock; the inputs of its rwkv_scan
+    launches, recorded from one more forward for phase 4; every layer run
+    on the same input through the kernel path and the plain path; and,
+    reported only, the whole forward on the plain path, the first
+    DECODE_T tokens through decode_step, and the plain path's logits
+    after a one-ulp change of the embedding (see rwkv_fp32_phase)."""
+    import numpy as np
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.models import rwkv6
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    V = params["lm_head"].shape[1]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, cfg.vocab, (PREFILL_B, PREFILL_S))).to("cuda")
+    batch = {"tokens": tokens}
+    out = {"tokens": tokens}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        logits = ad.forward(params, batch)
+        torch.cuda.synchronize()
+        out["first_ms"] = (time.perf_counter() - t0) * 1e3
+        counts = {name: c.count for name, c in launch_counters().items()}
+        out["counts"] = counts
+        check(counts == {"flash_decode": 0, "rowstream_matmul": 0,
+                         "rwkv_scan": cfg.n_layers},
+              f"rwkv6-3b forward launched {counts}, expected "
+              f"{cfg.n_layers} rwkv_scan and nothing else")
+        check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
+              and bool(logits.isfinite().all()),
+              f"forward logits {tuple(logits.shape)} not finite")
+        t0 = time.perf_counter()
+        ad.forward(params, batch)
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+
+        launches = []
+        scan = rwkv6.rwkv_scan
+
+        def record(*args):
+            launches.append(tuple(a.clone() for a in args))
+            return scan(*args)
+
+        rwkv6.rwkv_scan = record
+        try:
+            ad.forward(params, batch)
+        finally:
+            rwkv6.rwkv_scan = scan
+        out["launches"] = launches
+
+        # Each layer on the same input: the two paths differ in the scan
+        # only, by fp32 rounding, which flips the last bit of some bf16
+        # values downstream. A flipped bit of a large intermediate (the
+        # channel mix squares activations into the hundreds) moves small
+        # outputs by more than their own ulp, so the bound is
+        # tests/test_kernels.py's bf16 tolerance, 3e-2, relative to the
+        # layer output's largest magnitude.
+        h = params["embed"][tokens]
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            bp = rwkv6._index(params["blocks"], i)
+            hk = rwkv6._layer_seq(bp, cfg, h)
+            with plain_path():
+                hp = rwkv6._layer_seq(bp, cfg, h)
+            err = (hk.float() - hp.float()).abs().max().item()
+            scale = hp.float().abs().max().item()
+            check(err <= 3e-2 * scale,
+                  f"rwkv6-3b layer {i}: kernel and plain paths differ by "
+                  f"{err} on the same input (largest |output| {scale})")
+            worst = max(worst, err / scale)
+            h = hk
+        out["layer_err"] = worst
+
+        with plain_path():
+            plain = ad.forward(params, batch)
+            bumped = dict(params, embed=(params["embed"].view(torch.int16)
+                                         + 1).view(torch.bfloat16))
+            out["ulp_diff"] = (ad.forward(bumped, batch)
+                               .float() - plain.float()).abs().max().item()
+        out["plain_diff"] = (logits.float() - plain.float()).abs().max().item()
+        out["max_logit"] = plain.float().abs().max().item()
+        del plain, bumped
+        dec = decode_logits(torch, ad, params, tokens)
+        out["decode_diff"] = (dec - logits[:, :DECODE_T].float()
+                              ).abs().max().item()
+    return out
+
+
+def decode_logits(torch, ad, params, tokens):
+    """Logits (b, DECODE_T, V) fp32 of the first DECODE_T tokens of
+    `tokens`, stepped one by one through decode_step."""
+    state = ad.init_decode_state(tokens.shape[0], MAX_SEQ, device="cuda")
+    steps = []
+    for t in range(DECODE_T):
+        lg, state = ad.decode(params, {"tokens": tokens[:, t:t + 1]}, state,
+                              t)
+        steps.append(lg[:, 0].float())
+    return torch.stack(steps, 1)
+
+
+def rwkv_fp32_phase(torch, cfg, tokens) -> dict:
+    """rwkv6-3b at full width in fp32, random weights from the same seed:
+    the forward on the kernel path against the plain path, and the first
+    DECODE_T tokens through decode_step against forward, both within
+    LOGITS_ATOL. In bf16 the random-weight model at full width amplifies
+    any rounding: a one-ulp change of its embedding moves the plain path's
+    own logits by far more than LOGITS_ATOL, so bf16 logits cannot tell a
+    right kernel from a wrong one; in fp32 they can."""
+    import dataclasses
+    from repro_torch.models.registry import get_adapter
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(torch, cfg32)
+    ad = get_adapter(cfg32)
+    out = {}
+    with torch.inference_mode():
+        logits = ad.forward(params, {"tokens": tokens}).float()
+        with plain_path():
+            plain = ad.forward(params, {"tokens": tokens}).float()
+        torch.cuda.synchronize()
+        out["plain_diff"] = (logits - plain).abs().max().item()
+        out["max_logit"] = plain.abs().max().item()
+        out["plain_argmax"] = (logits.argmax(-1) == plain.argmax(-1)
+                               ).float().mean().item()
+        del plain
+        check(out["plain_diff"] <= LOGITS_ATOL,
+              f"rwkv6-3b fp32 forward logits differ from the plain path by "
+              f"{out['plain_diff']} (> {LOGITS_ATOL})")
+        dec = decode_logits(torch, ad, params, tokens)
+        ref = logits[:, :DECODE_T]
+        out["decode_diff"] = (dec - ref).abs().max().item()
+        out["decode_argmax"] = (dec.argmax(-1) == ref.argmax(-1)
+                                ).float().mean().item()
+        check(out["decode_diff"] <= LOGITS_ATOL,
+              f"rwkv6-3b fp32 decode differs from forward by "
+              f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def forward_breakdown(torch, cfg, params, tokens) -> dict:
+    """Device time of one rwkv6-3b forward from torch.profiler: the
+    rwkv_scan kernel, the torch.matmul products (the device time under
+    aten::matmul) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    with torch.inference_mode():
+        ad.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ad.forward(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    total = _device_us(prof) / 1e3
+    check(total > 0, "the profiler recorded no device time for forward")
+    scan = _device_us(prof, RS_KERNELS) / 1e3
+    mm = sum(e.device_time_total for e in prof.key_averages()
+             if e.key == "aten::matmul") / 1e3
+    return {"device_ms": total, "scan_ms": scan, "matmul_ms": mm,
+            "other_ms": total - scan - mm}
+
+
+def time_works(works: dict) -> None:
+    """Each work's wall time (CUDA events), then its kernel, plain and
+    library device times (torch.profiler); printed and kept in `works`."""
+    for w in works.values():
+        if "wall_ms" not in w:
+            w["wall_ms"] = timed_ms(w["kernel"], w["reps"])
+    for name, w in works.items():
+        w["ms"] = device_ms(w["kernel"], w["reps"], w["names"])
+        w["plain_ms"] = device_ms(w["plain"], w.get("plain_reps", w["reps"]))
+        w["library_ms"] = (device_ms(w["library"], w["reps"])
+                           if w["library"] is not None else None)
+        print(f"[time] {name}, {w['launches_per_step']} launches of "
+              f"{w['per']}, device time: kernel {w['ms']!r} ms (wall "
+              f"{w['wall_ms']!r} ms), plain {w['plain_ms']!r} ms, library "
+              f"{w['library_ms']!r} ms, bound {w['bound_ms']!r} ms "
+              f"({w['bound_by']})")
+        if "ops" in w:
+            print(f"[time] {name}: {w['bytes']!r} bytes, {w['ops']!r} "
+                  f"operations (bytes over 3.35 TB/s "
+                  f"{w['bytes'] / PEAK_BYTES_PER_S * 1e3!r} ms, operations "
+                  f"over fp32's 67 TFLOP/s "
+                  f"{w['ops'] / PEAK_OPS_PER_S['float32'] * 1e3!r} ms)")
+
+
+def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
+    print(f"[profile] {name} decode step device time {bd['device_ms']!r} "
+          f"ms: rowstream_matmul {bd['rowstream_ms']!r} (of which split-K "
+          f"reduce {bd['reduce_ms']!r}), flash_decode {bd['flash_ms']!r}, "
+          f"other torch kernels {bd['other_ms']!r}; device idle share at "
+          f"the median step {1 - bd['device_ms'] / median_ms!r}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -408,7 +766,7 @@ def main() -> int:
         return 2
     from repro_torch.configs.registry_configs import ALL_ARCHS
     from repro_torch.kernels import build
-    from repro_torch.models.registry import get_adapter
+    from repro_torch.launch.serve import make_requests, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -428,91 +786,159 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
-    fd_err = check_flash_decode(torch, dev)
-    rm_err = check_rowstream(torch, dev)
-
-    slots, max_seq, n_req, prompt_len, max_new = 4, 128, 12, 16, 24
-    cfg = ALL_ARCHS["qwen2-7b"]
-    t0 = time.perf_counter()
-    params = get_adapter(cfg).init(
-        torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size()
-                  for t in _tensors(params))
-    print(f"[init] qwen2-7b full width, bf16, {n_bytes / 1e9:.2f} GB of "
-          f"weights in {time.perf_counter() - t0:.1f} s")
+    errs = {"flash_decode": check_flash_decode(torch, dev),
+            "rowstream_matmul": check_rowstream(torch, dev),
+            "rwkv_scan": check_rwkv_scan(torch, dev)}
 
     # Everything timed on the host clock or with CUDA events comes before
     # the first use of the profiler: its hooks stay behind and slow later
     # launches from the host.
-    sv = serve_phase(torch, cfg, params, slots, max_seq, n_req, prompt_len,
-                     max_new)
-    print(f"[serve] qwen2-7b bf16: {n_req} requests, {sv['steps']} steps, "
-          f"{sv['generated']} tokens, {sv['tokens_per_s']!r} tok/s; step "
-          f"median {sv['median_step_ms']!r} ms, mean {sv['mean_step_ms']!r} "
-          f"ms, first {sv['first_step_ms']!r} ms; launches "
-          f"{sv['counts']} ({sv['counts']['flash_decode'] // sv['steps']} "
-          f"and {sv['counts']['rowstream_matmul'] // sv['steps']} per step)")
+    qcfg = ALL_ARCHS["qwen2-7b"]
+    params = init_params(torch, qcfg)
+    sv = serve_phase(torch, qcfg, params,
+                     {"flash_decode": qcfg.n_layers,
+                      "rowstream_matmul": 7 * qcfg.n_layers + 1,
+                      "rwkv_scan": 0})
+    print_serve("qwen2-7b", sv)
 
     prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
                                         key=lambda r: r.rid)]
-    logits_phase(torch, cfg, params, prompts, slots, max_seq)
+    logits_phase(torch, qcfg, params, prompts, SLOTS, MAX_SEQ)
 
     # The same requests on the plain path: greedy tokens that agree.
-    from repro_torch.launch.serve import make_requests, serve
     with plain_path():
-        plain = serve(cfg, params, make_requests(n_req, prompt_len, max_new,
-                                                 cfg.vocab, SEED),
-                      slots, max_seq, "cuda")
+        plain = serve(qcfg, params, make_requests(N_REQ, PROMPT_LEN, MAX_NEW,
+                                                  qcfg.vocab, SEED),
+                      SLOTS, MAX_SEQ, "cuda")
     agree = sum(a == b for r in plain.batcher.completed
                 for a, b in zip(r.out_tokens, sv["tokens"][r.rid]))
     print(f"[serve] plain path: {agree}/{sv['generated']} greedy tokens "
           f"agree with the kernel path, position by position")
 
-    works = {"flash_decode": flash_work(torch, cfg, slots, max_seq),
-             "rowstream_matmul": rowstream_work(torch, cfg, params, slots)}
-    for w in works.values():
-        w["wall_ms"] = timed_ms(w["kernel"], w["reps"])
-    for name, w in works.items():
-        w["ms"] = device_ms(w["kernel"], w["reps"], w["names"])
-        w["plain_ms"] = device_ms(w["plain"], w["reps"])
-        w["library_ms"] = device_ms(w["library"], w["reps"])
-        print(f"[time] {name}, {w['launches_per_step']} launches of one "
-              f"decode step, device time: kernel {w['ms']!r} ms (wall "
-              f"{w['wall_ms']!r} ms), plain {w['plain_ms']!r} ms, library "
-              f"{w['library_ms']!r} ms, bound {w['bound_ms']!r} ms "
-              f"({w['bound_by']})")
+    walls = {"flash_decode": timed_ms(
+                 flash_work(torch, qcfg, SLOTS, MAX_SEQ)["kernel"], 20),
+             "rowstream_matmul": timed_ms(
+                 rowstream_work(torch, qwen_weights(qcfg, params),
+                                SLOTS)["kernel"], 5)}
+    del params, plain
+    torch.cuda.empty_cache()
 
-    bd = step_breakdown(torch, cfg, params, slots, max_seq)
-    print(f"[profile] decode step device time {bd['device_ms']!r} ms: "
-          f"rowstream_matmul {bd['rowstream_ms']!r} (of which split-K "
-          f"reduce {bd['reduce_ms']!r}), flash_decode "
-          f"{bd['flash_ms']!r}, other torch kernels {bd['other_ms']!r}; "
-          f"device idle share at the median step "
-          f"{1 - bd['device_ms'] / sv['median_step_ms']!r}")
+    rcfg = ALL_ARCHS["rwkv6-3b"]
+    params = init_params(torch, rcfg)
+    pf = rwkv_forward_phase(torch, rcfg, params)
+    print(f"[forward] rwkv6-3b bf16, {PREFILL_B} x {PREFILL_S} tokens: "
+          f"launches {pf['counts']}; host time {pf['forward_ms']!r} ms "
+          f"(first call {pf['first_ms']!r} ms); each layer on the same "
+          f"input, kernel against plain path: max err / max |output| "
+          f"{pf['layer_err']!r} (tolerance 3e-2)")
+    print(f"[forward] rwkv6-3b bf16, reported only: max |kernel - plain| "
+          f"logits {pf['plain_diff']!r} (max |logit| {pf['max_logit']!r}); "
+          f"{DECODE_T} tokens through decode_step against forward "
+          f"{pf['decode_diff']!r}; the plain path's logits move by "
+          f"{pf['ulp_diff']!r} when each embedding value moves by one bf16 "
+          f"ulp")
+    fp = rwkv_fp32_phase(torch, rcfg, pf["tokens"])
+    print(f"[forward] rwkv6-3b fp32, same seed: max |kernel - plain| logits "
+          f"{fp['plain_diff']!r} (tolerance {LOGITS_ATOL}; max |logit| "
+          f"{fp['max_logit']!r}), argmax agrees at {fp['plain_argmax']!r} of "
+          f"positions")
+    print(f"[decode] rwkv6-3b fp32: {DECODE_T} tokens of {PREFILL_B} "
+          f"prompts through decode_step: max |decode - forward| logits "
+          f"{fp['decode_diff']!r} (tolerance {LOGITS_ATOL}), argmax agrees "
+          f"at {fp['decode_argmax']!r} of positions")
+    rs = serve_phase(torch, rcfg, params,
+                     {"flash_decode": 0,
+                      "rowstream_matmul": 10 * rcfg.n_layers + 1,
+                      "rwkv_scan": 0})
+    print_serve("rwkv6-3b", rs)
 
+    works = {"rwkv_scan": scan_work(torch, pf.pop("launches")),
+             "rowstream_matmul on rwkv6-3b": rowstream_work(
+                 torch, rwkv_weights(rcfg, params), SLOTS)}
+    works["rwkv_scan"]["per"] = (f"one rwkv6-3b forward at b {PREFILL_B} x "
+                                 f"s {PREFILL_S}")
+    works["rowstream_matmul on rwkv6-3b"]["per"] = \
+        f"one rwkv6-3b decode step at {SLOTS} slots"
+    time_works(works)     # CUDA-event walls first, then the profiler
+    fb = forward_breakdown(torch, rcfg, params, pf["tokens"])
+    print(f"[profile] rwkv6-3b forward device time {fb['device_ms']!r} ms: "
+          f"rwkv_scan {fb['scan_ms']!r}, torch.matmul {fb['matmul_ms']!r}, "
+          f"other {fb['other_ms']!r}; device idle share of the host-timed "
+          f"forward {1 - fb['device_ms'] / pf['forward_ms']!r}")
+    rbd = step_breakdown(torch, rcfg, params)
+    print_breakdown("rwkv6-3b", rbd, rs["median_step_ms"])
+    works = {name: numbers(w) for name, w in works.items()}
+    del params, pf["tokens"]
+    torch.cuda.empty_cache()
+
+    # qwen2-7b again, from the same seed, for its profiled part.
+    params = init_params(torch, qcfg)
+    qworks = {"flash_decode": flash_work(torch, qcfg, SLOTS, MAX_SEQ),
+              "rowstream_matmul": rowstream_work(
+                  torch, qwen_weights(qcfg, params), SLOTS)}
+    for name, w in qworks.items():
+        w["wall_ms"] = walls[name]
+        w["per"] = f"one qwen2-7b decode step at {SLOTS} slots"
+    time_works(qworks)
+    qbd = step_breakdown(torch, qcfg, params)
+    print_breakdown("qwen2-7b", qbd, sv["median_step_ms"])
+    works.update((name, numbers(w)) for name, w in qworks.items())
+
+    paths = {"qwen2-7b serve": sv["counts"], "rwkv6-3b forward": pf["counts"],
+             "rwkv6-3b serve": rs["counts"]}
+    replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
+                "rowstream_matmul":
+                    "src/repro/kernels/rowstream_matmul/kernel.py:49",
+                "rwkv_scan": "src/repro/kernels/rwkv_scan/kernel.py:93"}
     kernels = []
-    for name, err, line in (
-            ("flash_decode", fd_err,
-             "src/repro/kernels/flash_decode/kernel.py:74"),
-            ("rowstream_matmul", rm_err,
-             "src/repro/kernels/rowstream_matmul/kernel.py:49")):
+    for name, line in replaces.items():
         t = works[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu", "replaces": line,
-            "launches": sv["counts"][name], "max_abs_err": err,
+            "launches": sum(c[name] for c in paths.values()),
+            "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "wall_ms": t["wall_ms"],
-            "per": f"one qwen2-7b decode step at {slots} slots: "
-                   f"{t['launches_per_step']} launches"})
+            "per": f"{t['per']}: {t['launches_per_step']} launches",
+            "launches_by_path": {p: c[name] for p, c in paths.items()}}
+        if name == "rowstream_matmul":
+            entry["on_rwkv6_step"] = works["rowstream_matmul on rwkv6-3b"]
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def numbers(work: dict) -> dict:
+    """A timed work's results, without the closures that hold its
+    tensors."""
+    return {k: v for k, v in work.items() if not callable(v)}
+
+
+def init_params(torch, cfg) -> dict:
+    from repro_torch.models.registry import get_adapter
+    t0 = time.perf_counter()
+    params = get_adapter(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    print(f"[init] {cfg.name} full width, {cfg.dtype}, {n_bytes / 1e9:.2f} GB of "
+          f"weights in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def print_serve(name: str, sv: dict) -> None:
+    per_step = {n: c // sv["steps"] for n, c in sv["counts"].items()}
+    print(f"[serve] {name} bf16: {N_REQ} requests, {sv['steps']} steps, "
+          f"{sv['generated']} tokens, {sv['tokens_per_s']!r} tok/s; step "
+          f"median {sv['median_step_ms']!r} ms, mean {sv['mean_step_ms']!r} "
+          f"ms, first {sv['first_step_ms']!r} ms; launches {sv['counts']} "
+          f"({per_step} per step)")
 
 
 def _tensors(tree):

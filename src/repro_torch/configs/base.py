@@ -1,10 +1,12 @@
-"""Architecture configuration schema of the port's dense decode path.
+"""Architecture configuration schema of the port's model paths.
 
 A subset of ``repro.configs.base``: the PyTorch port imports nothing of
-the JAX package, so it keeps its own copy of the fields the dense decode
-step reads, and of the dense part of :func:`reduced`, so that both
-packages build the same shapes from the same config. A slice that ports
-another family (MoE, SSM, hybrid, ...) adds that family's fields.
+the JAX package, so it keeps its own copy of the fields its models read,
+and of the dense part of :func:`reduced`, so that both packages build the
+same shapes from the same config. The SSM family's rwkv6 reads no field
+beyond the dense ones (its head count is ``d_model // 64``), and the
+dense part of ``reduced`` is also the reference's reduced rwkv6. A slice
+that ports another family (MoE, hybrid, ...) adds that family's fields.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense (the only family ported so far)
+    family: str                   # dense or ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int

@@ -1,12 +1,14 @@
 """Arch-id -> ArchConfig registry of the port: the dense configs whose
-decode step needs nothing beyond ``models/transformer.decode_step``."""
-from . import h2o_danube_1_8b, minitron_8b, qwen2_7b, qwen3_14b
+decode step needs nothing beyond ``models/transformer.decode_step``, and
+the SSM config run by ``models/rwkv6``."""
+from . import h2o_danube_1_8b, minitron_8b, qwen2_7b, qwen3_14b, rwkv6_3b
 
 ALL_ARCHS = {
     "qwen2-7b": qwen2_7b.CONFIG,
     "minitron-8b": minitron_8b.CONFIG,
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
+    "rwkv6-3b": rwkv6_3b.CONFIG,
 }
 
 

@@ -28,7 +28,8 @@ class LaunchCounter:
 def launch_counters() -> dict[str, LaunchCounter]:
     from .flash_decode.ops import LAUNCHES as fd
     from .rowstream_matmul.ops import LAUNCHES as rm
-    return {c.name: c for c in (fd, rm)}
+    from .rwkv_scan.ops import LAUNCHES as rs
+    return {c.name: c for c in (fd, rm, rs)}
 
 
 def reset_launch_counters() -> None:

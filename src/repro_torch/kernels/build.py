@@ -20,7 +20,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("flash_decode", "rowstream_matmul")
+KERNELS = ("flash_decode", "rowstream_matmul", "rwkv_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

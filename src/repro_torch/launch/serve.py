@@ -3,14 +3,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --requests 12 --slots 4                 # on cuda (the default)
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --reduced --device cpu
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
-``--device``. It reproduces the reference's behaviour exactly, including
-three quirks: only ``req.prompt[0]`` is fed at admission; every slot
-decodes at one shared host-side ``pos`` that clamps at ``max_seq - 1``; so
-a request admitted into a reused slot attends to the KV its predecessor
-left there. ``pos`` stays a host int, so a step reads nothing back from the
-device but the sampled tokens.
+``--device``. It serves the dense family (a KV cache) and rwkv6 (a
+recurrent state) through the same loop, and reproduces the reference's
+behaviour exactly, including its quirks: only ``req.prompt[0]`` is fed at
+admission; every slot decodes at one shared host-side ``pos`` that clamps
+at ``max_seq - 1``; nothing is cleared when a slot is reused, so a request
+admitted into it attends to the KV its predecessor left there, or carries
+on from its predecessor's recurrent state; and the closing KV-bytes line
+uses ``n_kv_heads`` and the head dim also for rwkv6, which has no KV cache.
+``pos`` stays a host int, so a step reads nothing back from the device but
+the sampled tokens.
 """
 from __future__ import annotations
 
@@ -56,7 +62,8 @@ class ServeRun:
 def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
           device) -> ServeRun:
     """Answer ``requests`` with greedy decoding over ``slots`` batch slots
-    and a ``max_seq`` KV cache on ``device``. Each step's time is taken on
+    on ``device``, with a ``max_seq`` KV cache (dense) or a recurrent state
+    (rwkv6). Each step's time is taken on
     the host clock after the sampled tokens reach the host, so it includes
     the device's work."""
     device = resolve_device(device)

@@ -1,0 +1,221 @@
+"""RWKV6 "Finch": attention-free LM with data-dependent decay
+(arXiv:2404.05892). rwkv6-3b: 32L, d_model 2560, d_ff 8960, vocab 65536.
+
+The PyTorch counterpart of ``repro.models.rwkv6``, function for function,
+with the same cast order. Per layer: time mix (multi-head linear attention
+with per-channel data-dependent decay w_t and bonus u) and channel mix.
+The recurrence
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t,   o_t = r_t (diag(u) k_t^T v_t + S_{t-1})
+
+runs in two forms:
+
+* ``forward`` (prefill) is chunk-parallel where the reference scans token
+  by token: the token shift, the mixes and every projection run over all
+  b * s rows at once (``torch.matmul``, as the reference leaves them to
+  XLA), and the whole prompt's recurrence goes through the ``rwkv_scan``
+  kernel wrapper, one launch per layer.
+* ``decode_step`` updates the state once per token as the reference does;
+  every weight product goes through ``layers.matmul`` (the row-stream
+  kernel): 10 per layer plus the head.
+
+Parameters are a dict of tensors with the reference's structure, the
+per-layer ``blocks`` leaves stacked along a leading layer dim.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..distributed.sharding import padded_vocab
+from ..kernels.rwkv_scan.ops import rwkv_scan
+from .layers import dense_init, matmul, rmsnorm
+from .transformer import _dtype, _index, _stack
+
+LORA_RANK = 64
+HEAD_DIM = 64
+
+
+def n_heads(cfg) -> int:
+    return cfg.d_model // HEAD_DIM
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(cfg, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen``'s device with the reference's structure
+    and scales: normal/sqrt(fan_in) projections (the decay LoRA's second
+    factor at 0.01, the embedding at 0.02), mixes at 0.5, unit norms, and
+    the fp32 ``w0`` (-5) and ``u`` (0) inside a model of ``cfg.dtype``."""
+    dt = _dtype(cfg)
+    dev = gen.device
+    d = cfg.d_model
+    V = padded_vocab(cfg.vocab)
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    def block_init():
+        return {
+            # time mix
+            "mu": full((5, d), 0.5),             # r,k,v,g,w shift mixes
+            "wr": dense_init(gen, (d, d), dt),
+            "wk": dense_init(gen, (d, d), dt),
+            "wv": dense_init(gen, (d, d), dt),
+            "wg": dense_init(gen, (d, d), dt),
+            "wo": dense_init(gen, (d, d), dt),
+            "w0": full((d,), -5.0, torch.float32),      # base decay
+            "w_lora_a": dense_init(gen, (d, LORA_RANK), dt),
+            "w_lora_b": dense_init(gen, (LORA_RANK, d), dt, scale=0.01),
+            "u": full((n_heads(cfg), HEAD_DIM), 0.0, torch.float32),
+            "ln_x": full((d,), 1.0),             # per-head group norm
+            "tm_norm": full((d,), 1.0),
+            # channel mix
+            "mu_c": full((2, d), 0.5),
+            "ck": dense_init(gen, (d, cfg.d_ff), dt),
+            "cv": dense_init(gen, (cfg.d_ff, d), dt),
+            "cr": dense_init(gen, (d, d), dt),
+            "cm_norm": full((d,), 1.0),
+        }
+
+    return {
+        "embed": dense_init(gen, (V, d), dt, scale=0.02),
+        "blocks": _stack([block_init() for _ in range(cfg.n_layers)]),
+        "final_norm": full((d,), 1.0),
+        "lm_head": dense_init(gen, (d, V), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Core mixing
+# ---------------------------------------------------------------------------
+# `mm` is the product: layers.matmul (the row-stream kernel) at decode,
+# torch.matmul over all rows of a prompt.
+
+def _decay(bp: dict, xw: torch.Tensor, mm=matmul) -> torch.Tensor:
+    """Data-dependent per-channel decay in (0, 1): w = exp(-exp(w0 +
+    lora)), the LoRA in the model dtype, the rest in fp32."""
+    lora = mm(torch.tanh(mm(xw, bp["w_lora_a"])), bp["w_lora_b"])
+    return torch.exp(-torch.exp(bp["w0"] + lora.float()))
+
+
+def _group_norm(o: torch.Tensor, ln_x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Per-head norm of o (..., H, hd) fp32 with the population variance,
+    then cast to the model dtype and scaled by ln_x: (..., H * hd)."""
+    o = (o - o.mean(-1, keepdim=True)) \
+        * torch.rsqrt(o.var(-1, keepdim=True, correction=0) + 64e-5)
+    return o.flatten(-2).to(dtype) * ln_x
+
+
+def _time_mix_step(bp: dict, cfg, x: torch.Tensor, x_prev: torch.Tensor,
+                   S: torch.Tensor) -> tuple:
+    """One token of time mixing. x, x_prev: (b, d); S: (b, H, hd, hd)
+    fp32. Returns (out (b, d), new S)."""
+    H, hd = n_heads(cfg), HEAD_DIM
+    b = x.shape[0]
+    mix = x[:, None, :] + (x_prev - x)[:, None, :] * bp["mu"]     # (b, 5, d)
+    xr, xk, xv, xg, xw = mix.unbind(1)
+    r = matmul(xr, bp["wr"]).reshape(b, H, hd).float()
+    k = matmul(xk, bp["wk"]).reshape(b, H, hd).float()
+    v = matmul(xv, bp["wv"]).reshape(b, H, hd).float()
+    g = F.silu(matmul(xg, bp["wg"]))
+    w = _decay(bp, xw).reshape(b, H, hd)
+    kv = k[..., :, None] * v[..., None, :]                        # rank-1
+    o = torch.einsum("bhk,bhkv->bhv", r, S + bp["u"][None, :, :, None] * kv)
+    S = w[..., None] * S + kv
+    o = _group_norm(o, bp["ln_x"], x.dtype)
+    return matmul(o * g, bp["wo"]), S
+
+
+def _channel_mix_step(bp: dict, x: torch.Tensor, x_prev: torch.Tensor,
+                      mm=matmul) -> torch.Tensor:
+    """Channel mix of x (..., d) against its shifted x_prev."""
+    mix = x[..., None, :] + (x_prev - x)[..., None, :] * bp["mu_c"]
+    xk, xr = mix.unbind(-2)
+    k = torch.square(torch.relu(mm(xk, bp["ck"])))
+    return mm(k, bp["cv"]) * torch.sigmoid(mm(xr, bp["cr"]))
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """The previous token of each position, zeros at t = 0: (b, s, d)."""
+    return F.pad(x[:, :-1], (0, 0, 1, 0))
+
+
+def _time_mix_seq(bp: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Time mixing of a whole normed sequence x (b, s, d) from a zero
+    state: the mixes and projections over all b * s rows, the recurrence
+    in one ``rwkv_scan`` call."""
+    H, hd = n_heads(cfg), HEAD_DIM
+    b, s, d = x.shape
+    mm = torch.matmul
+    mix = x[:, :, None, :] + (_shift(x) - x)[:, :, None, :] * bp["mu"]
+    xr, xk, xv, xg, xw = mix.unbind(2)
+    r = mm(xr, bp["wr"]).reshape(b, s, H, hd).float()
+    k = mm(xk, bp["wk"]).reshape(b, s, H, hd).float()
+    v = mm(xv, bp["wv"]).reshape(b, s, H, hd).float()
+    g = F.silu(mm(xg, bp["wg"]))
+    w = _decay(bp, xw, mm).reshape(b, s, H, hd)
+    o, _ = rwkv_scan(r, k, v, w, bp["u"])
+    o = _group_norm(o, bp["ln_x"], x.dtype)
+    return mm(o * g, bp["wo"])
+
+
+def _layer_seq(bp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+    """Full-sequence layer. h: (b, s, d)."""
+    hn = rmsnorm(h, bp["tm_norm"], cfg.norm_eps)
+    h = h + _time_mix_seq(bp, cfg, hn)
+    hn = rmsnorm(h, bp["cm_norm"], cfg.norm_eps)
+    return h + _channel_mix_step(bp, hn, _shift(hn), torch.matmul)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (b, s) int. Returns logits (b, s, V_padded)."""
+    h = params["embed"][tokens]
+    blocks = params["blocks"]
+    for i in range(blocks["wr"].shape[0]):
+        h = _layer_seq(_index(blocks, i), cfg, h)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return torch.matmul(h, params["lm_head"])
+
+
+def init_state(cfg, batch: int, device="cuda") -> dict:
+    """Recurrent decode state (per layer): the previous token's normed
+    activations of each mix, in the model dtype, and the (H, hd, hd) fp32
+    linear-attention state; O(1) in sequence length."""
+    d, L = cfg.d_model, cfg.n_layers
+    return {
+        "x_tm": torch.zeros((L, batch, d), dtype=_dtype(cfg), device=device),
+        "x_cm": torch.zeros((L, batch, d), dtype=_dtype(cfg), device=device),
+        "S": torch.zeros((L, batch, n_heads(cfg), HEAD_DIM, HEAD_DIM),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def decode_step(params: dict, cfg, token: torch.Tensor, state: dict,
+                pos=None) -> tuple:
+    """token: (b, 1) int. Returns (logits (b, 1, V_padded), state).
+
+    The state is updated in place, layer by layer (JAX returns a new
+    state); the returned state is the same dict. ``pos`` is unused, as in
+    the reference."""
+    h = params["embed"][token[:, 0]]                              # (b, d)
+    blocks = params["blocks"]
+    for i in range(state["S"].shape[0]):
+        bp = _index(blocks, i)
+        hn = rmsnorm(h, bp["tm_norm"], cfg.norm_eps)
+        o, S = _time_mix_step(bp, cfg, hn, state["x_tm"][i], state["S"][i])
+        h = h + o
+        hn2 = rmsnorm(h, bp["cm_norm"], cfg.norm_eps)
+        h = h + _channel_mix_step(bp, hn2, state["x_cm"][i])
+        state["x_tm"][i] = hn
+        state["x_cm"][i] = hn2
+        state["S"][i] = S
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return matmul(h, params["lm_head"])[:, None, :], state

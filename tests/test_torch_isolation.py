@@ -18,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import launch_counters, reset_launch_counters
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
+from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.launch import serve as port_serve
 from repro_torch.serve.batching import ContinuousBatcher, Request
 
@@ -76,8 +77,10 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     rowstream_matmul(torch.ones((2, 8)), torch.ones((8, 3)))
     flash_decode(torch.ones((1, 4, 16)), torch.ones((1, 2, 8, 16)),
                  torch.ones((1, 2, 8, 16)), 3)
+    x = torch.ones((1, 4, 2, 16))
+    rwkv_scan(x, x, x, x * 0.5, torch.zeros((2, 16)))
     counters = launch_counters()
-    assert set(counters) == {"flash_decode", "rowstream_matmul"}
+    assert set(counters) == {"flash_decode", "rowstream_matmul", "rwkv_scan"}
     assert all(c.count == 0 for c in counters.values())
 
 

@@ -1,6 +1,7 @@
-"""The slice as a whole: the port's serve loop, on the reference's
+"""The slices as a whole: the port's serve loop, on the reference's
 parameters moved across by the bridge, emits exactly the greedy tokens of
-``repro.launch.serve.main`` for reduced qwen2-7b in fp32."""
+``repro.launch.serve.main`` for reduced qwen2-7b (KV cache) and reduced
+rwkv6-3b (recurrent state) in fp32."""
 import jax
 import numpy as np
 import pytest
@@ -18,11 +19,11 @@ from repro_torch.configs.base import reduced
 from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.launch import serve as port_serve
 
-ARGV = ["--arch", "qwen2-7b", "--reduced", "--requests", "4", "--slots",
-        "2", "--max-new", "8"]
+ARGV = ["--reduced", "--requests", "4", "--slots", "2", "--max-new", "8"]
 
 
-def test_serve_tokens_match_jax_driver(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-3b"])
+def test_serve_tokens_match_jax_driver(monkeypatch, arch):
     batchers = []
 
     class Capture(JaxBatcher):
@@ -35,16 +36,16 @@ def test_serve_tokens_match_jax_driver(monkeypatch):
 
     monkeypatch.setattr(jax_serve, "ContinuousBatcher", Capture)
     monkeypatch.setattr(jax_serve, "reduced", reduced_fp32)
-    assert jax_serve.main(ARGV) == 0
+    assert jax_serve.main(["--arch", arch] + ARGV) == 0
     (jb,) = batchers
     expected = {r.rid: r.out_tokens for r in jb.completed}
 
     # The reference's parameters, built as its driver builds them.
-    jcfg = reduced_fp32(JAX_ARCHS["qwen2-7b"])
+    jcfg = reduced_fp32(JAX_ARCHS[arch])
     jparams = jax_get_adapter(jcfg).init(jax.random.PRNGKey(0), tp=1)
     params = bridge.to_torch(tree_map(np.asarray, jparams), "cpu")
 
-    cfg = reduced(ALL_ARCHS["qwen2-7b"], dtype="float32")
+    cfg = reduced(ALL_ARCHS[arch], dtype="float32")
     requests = port_serve.make_requests(4, 16, 8, cfg.vocab, seed=0)
     run = port_serve.serve(cfg, params, requests, slots=2, max_seq=128,
                            device="cpu")
