@@ -1,9 +1,10 @@
 """Launch of the CUDA flash-decode kernel (``csrc/flash_decode.cu``).
 
 Replaces the Pallas TPU kernel ``flash_decode``
-(``src/repro/kernels/flash_decode/kernel.py``). The CUDA source says how the
-cache is split; this module picks the chunk length for a shape and launches
-it on PyTorch's current stream.
+(``src/repro/kernels/flash_decode/kernel.py``). The CUDA source says how a
+pair's valid prefix is split over the blocks of one thread-block cluster;
+this module plans the split for a shape (cached) and launches the kernel on
+PyTorch's current stream, allocating only the output.
 """
 from __future__ import annotations
 
@@ -16,56 +17,81 @@ import torch
 from ...serve.kv_cache import ROW_BYTES
 from .. import DTYPE_CODES, build, sm_count
 
-TILE = 32              # tokens a block stages at a time (csrc TILE)
-BLOCKS_PER_SM = 2      # split blocks wanted per SM
+MAX_SPLITS = 8         # blocks of a pair: one cluster of the portable size
+MAX_HEADS = 8          # query heads per block (csrc MAX_HG)
 MAX_ROW_TOKENS = 256   # longest chunk granule kept for the row contract
+GRANULE = 16           # chunk granule where a row takes more tokens
+MIN_CHUNK = 32         # tokens: the fastest at 128 slots on an H100 80GB
+                       # HBM3 at 700 W (scripts/flash_decode_latency.py)
 
 
 @functools.cache
 def _function():
     fn = build.load("flash_decode").flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def pick_chunk(n_valid: int, pairs: int, d: int, itemsize: int,
-               sms: int) -> int:
-    """Tokens per split of the valid cache prefix.
+def valid_tokens(pos: int, S: int) -> int:
+    """Slots attended to: 0..pos, or all S of a full ring buffer."""
+    return min(pos + 1, S)
 
-    Enough splits that the ``pairs`` (batch, KV head) pairs give about
-    BLOCKS_PER_SM blocks per SM, at least one tile each, and a multiple of
-    the tokens that fill whole 4 KB rows of one head's K, so every chunk
-    starts on a row. Head dims whose rows take more than MAX_ROW_TOKENS
-    tokens to fill use the tile as the granule instead."""
+
+def head_groups(g: int) -> int:
+    """Blocks per (batch, KV head) pair and chunk: the g query heads in
+    groups of at most MAX_HEADS."""
+    return -(-g // MAX_HEADS)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(n_valid: int, clusters: int, d: int, itemsize: int, sms: int,
+         min_chunk: int = MIN_CHUNK) -> tuple[int, int]:
+    """(chunk, nsplit): tokens per block and blocks per cluster for
+    ``clusters`` (pair, head group) clusters over ``n_valid`` tokens.
+
+    nsplit is about one wave of ``sms`` blocks over the clusters, at most
+    MAX_SPLITS, and no chunk is shorter than ``min_chunk``: each block has
+    a fixed cost (its first tile's latency, the merges, the cluster
+    barrier), so short prefixes take fewer, longer chunks. The chunk is a
+    multiple of the tokens that fill whole 4 KB rows of one head's K, so
+    every chunk but the last starts on a row; head dims whose rows take
+    more than MAX_ROW_TOKENS tokens to fill use GRANULE instead. Chunks past the valid prefix are
+    not launched."""
     row_tokens = ROW_BYTES // math.gcd(d * itemsize, ROW_BYTES)
-    granule = row_tokens if row_tokens <= MAX_ROW_TOKENS else TILE
-    splits = -(-BLOCKS_PER_SM * sms // pairs)
-    chunk = max(TILE, -(-n_valid // splits))
-    return -(-chunk // granule) * granule
+    granule = row_tokens if row_tokens <= MAX_ROW_TOKENS else GRANULE
+    want = max(1, min(MAX_SPLITS, sms // clusters))
+    chunk = max(min_chunk, -(-n_valid // want))
+    chunk = -(-chunk // granule) * granule
+    return chunk, -(-n_valid // chunk)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, pos: int) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors (see ``ops``)."""
+    return launch(_function(), q, k_cache, v_cache, pos)
+
+
+def launch(function, q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, pos: int,
+           min_chunk: int = MIN_CHUNK) -> torch.Tensor:
+    """Launch ``function``, the C entry point of a build of
+    ``csrc/flash_decode.cu``, as :func:`flash_decode` does."""
     b, h, d = q.shape
     hkv, S = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
-    n_valid = min(pos + 1, S)
-    chunk = pick_chunk(n_valid, b * hkv, d, k_cache.element_size(),
-                       sm_count(q.device.index or 0))
-    nsplit = -(-n_valid // chunk)
+    n_valid = valid_tokens(pos, S)
+    chunk, nsplit = plan(n_valid, b * hkv * head_groups(g), d,
+                         k_cache.element_size(),
+                         sm_count(q.device.index or 0), min_chunk)
+    vec = d % 8 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (q, k_cache, v_cache))
     out = torch.empty_like(q)
-    ws_m, ws_l = (torch.empty((b, hkv, nsplit, g), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
-    ws_acc = torch.empty((b, hkv, nsplit, g, d), dtype=torch.float32,
-                         device=q.device)
-    err = _function()(
+    err = function(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ws_m.data_ptr(), ws_l.data_ptr(), ws_acc.data_ptr(),
-        b, hkv, g, S, d, n_valid, chunk, nsplit, 1.0 / math.sqrt(d),
-        DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype],
+        b, hkv, g, S, d, n_valid, chunk, nsplit, int(vec),
+        1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err} "

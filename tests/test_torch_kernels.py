@@ -161,10 +161,63 @@ def test_flash_decode_rejects_bad_inputs():
                                                 (4096, 128, 2), (200, 80, 2),
                                                 (33, 16, 4), (1000, 100, 2)])
 def test_flash_decode_chunks_start_on_rows(n_valid, d, itemsize):
-    chunk = fd_kernel.pick_chunk(n_valid, 16, d, itemsize, 132)
-    assert chunk >= fd_kernel.TILE
+    chunk, nsplit = fd_kernel.plan(n_valid, 16, d, itemsize, 132)
     row_tokens = 4096 // np.gcd(d * itemsize, 4096)
     if row_tokens <= fd_kernel.MAX_ROW_TOKENS:
         assert (chunk * d * itemsize) % 4096 == 0
-    nsplit = -(-n_valid // chunk)
+    else:
+        assert chunk % fd_kernel.GRANULE == 0
     assert (nsplit - 1) * chunk < n_valid <= nsplit * chunk
+
+
+def _chunks(n_valid, clusters, d, itemsize, sms=132):
+    chunk, nsplit = fd_kernel.plan(n_valid, clusters, d, itemsize, sms)
+    return [(i * chunk, min(n_valid, (i + 1) * chunk))
+            for i in range(nsplit)]
+
+
+@pytest.mark.parametrize("n_valid", [1, 15, 16, 17, 101, 128, 4095, 4096,
+                                     20001, 32768])
+@pytest.mark.parametrize("clusters,d,itemsize", [(16, 128, 2), (16, 128, 4),
+                                                 (4, 64, 2), (200, 128, 2),
+                                                 (2, 80, 2), (3, 100, 2)])
+def test_flash_decode_chunks_cover_the_prefix(n_valid, clusters, d,
+                                              itemsize):
+    """The chunks cover [0, n_valid) exactly, in order, none empty; every
+    chunk but the last starts on a 4 KB row of one head's K where rows
+    hold at most MAX_ROW_TOKENS tokens; 1 <= nsplit <= 8; no chunk but
+    the last is shorter than MIN_CHUNK."""
+    chunks = _chunks(n_valid, clusters, d, itemsize)
+    assert 1 <= len(chunks) <= fd_kernel.MAX_SPLITS
+    assert chunks[0][0] == 0 and chunks[-1][1] == n_valid
+    assert all(a < b for a, b in chunks)
+    assert all(chunks[i][1] == chunks[i + 1][0]
+               for i in range(len(chunks) - 1))
+    assert all(b - a >= fd_kernel.MIN_CHUNK for a, b in chunks[:-1])
+    if 4096 // np.gcd(d * itemsize, 4096) <= fd_kernel.MAX_ROW_TOKENS:
+        assert all(a * d * itemsize % 4096 == 0 for a, _ in chunks)
+
+
+@pytest.mark.parametrize("sms,splits", [(132, 8), (64, 4), (16, 1),
+                                        (8, 1)])
+def test_flash_decode_splits_fill_one_wave(sms, splits):
+    """qwen2-7b at 4 slots (16 pairs) over its 32768-slot cache: 8 splits
+    on the H100's 132 SMs, fewer where the card has fewer."""
+    chunk, nsplit = fd_kernel.plan(32768, 16, 128, 2, sms)
+    assert nsplit == splits and chunk * nsplit == 32768
+
+
+@pytest.mark.parametrize("pos,S,n_valid", [(0, 64, 1), (63, 64, 64),
+                                           (64, 64, 64), (1000, 64, 64),
+                                           (40000, 32768, 32768)])
+def test_flash_decode_ring_buffer_reads_every_slot(pos, S, n_valid):
+    """pos >= S (a full ring buffer) attends to every slot."""
+    assert fd_kernel.valid_tokens(pos, S) == n_valid
+    chunks = _chunks(fd_kernel.valid_tokens(pos, S), 16, 128, 2)
+    assert chunks[-1][1] == n_valid
+
+
+@pytest.mark.parametrize("g,groups", [(1, 1), (7, 1), (8, 1), (9, 2),
+                                      (32, 4)])
+def test_flash_decode_head_groups(g, groups):
+    assert fd_kernel.head_groups(g) == groups
