@@ -11,7 +11,10 @@ GPU, from the root of a checkout:
    shapes of the main paths and at odd ones: flash_decode and
    rowstream_matmul with the tolerances of tests/test_kernels.py, rwkv_scan
    at its test shapes, with extreme decay and with rwkv6's own decays,
-   ragged lengths, bf16 inputs and rwkv6-3b's full width.
+   ragged lengths, bf16 inputs and rwkv6-3b's full width. rowstream_matmul
+   is also held, at the decode path's shapes, to a norm-wise bound per
+   slice of 256 columns, to identical bits from two calls, and to one
+   device kernel and one allocation (the output) per call.
 3. Drives the main paths at full width in bf16 with random weights from a
    seed, each with the launch counters set to 0 just before it and read
    just after:
@@ -38,14 +41,22 @@ GPU, from the root of a checkout:
    weights are made again from the same seed for its profiled part. Then
    flash_decode shows one device kernel and one allocation (the output)
    per call, and is timed at long context: 28 layers' caches of S 4096
-   and 32768 slots, pos S - 1.
+   and 32768 slots, pos S - 1. Each profiled decode step must run one
+   rowstream_matmul device kernel per launch.
 5. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only flash_decode`` runs only that kernel's
 phase: the card line, its build, its checks (long-context ones included),
 the one-kernel-per-call check and its timings at the serve shape and at
-S 4096 and 32768; it prints no ``ok`` line.
+S 4096 and 32768; it prints no ``ok`` line. ``--only rowstream_matmul``
+likewise: its build, its checks, the one-kernel check, then one line per
+distinct product shape of the qwen2-7b and rwkv6-3b decode steps (kernel,
+torch.matmul and byte-bound time per launch, the plan's blocks, splits and
+workspace) and each step's totals. ``--baseline`` runs it on a tree whose
+rowstream_matmul predates the one-kernel design (copy this script into
+that tree's root): it leaves out the checks and plan columns that design
+lacks and times every device kernel of the calls.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA card, or a directory without the
@@ -75,7 +86,10 @@ LOGITS_ATOL = 0.15
 SEED = 0
 # Device kernels of each port kernel, by name (csrc/*.cu).
 FD_KERNELS = ("flash_decode_simt", "flash_decode_mma")
-RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
+RM_KERNELS = ("rowstream_tiles", "rowstream_scalar")
+# rowstream_matmul's device kernels before the one-kernel design
+# (`--baseline`).
+BASELINE_RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
 RS_KERNELS = ("rwkv_scan_kernel",)
 # Products of one decode step, per layer (plus the head).
 QWEN_PRODUCTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
@@ -83,11 +97,32 @@ QWEN_PRODUCTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                  ("ffn", "w_down")]
 RWKV_PRODUCTS = ["wr", "wk", "wv", "wg", "w_lora_a", "w_lora_b", "wo", "ck",
                  "cv", "cr"]
+# rowstream_matmul's decode-path shapes at 4 slots: qwen2-7b's (wq and wo,
+# wk and wv, w_gate and w_up, w_down, head), then rwkv6-3b's (wr wk wv wg
+# wo cr, w_lora_a, w_lora_b, ck, cv, head).
+RM_PATH = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
+           (4, 18944, 3584), (4, 3584, 152064),
+           (4, 2560, 2560), (4, 2560, 64), (4, 64, 2560), (4, 2560, 8960),
+           (4, 8960, 2560), (4, 2560, 65536)]
+# Norm-wise bound of rowstream_matmul against its plain version, per slice
+# of RM_SLICE columns: ||out - ref|| / ||ref|| over the slice (all rows).
+# Both round the same fp32 sum, taken in another order, to the output
+# dtype; an output one bf16 ulp off is off by at most 2^-7 of itself, so
+# 2^-7 holds unless some output is more than an ulp off. fp32: the repo's
+# fp32 matmul tolerance (tests/test_kernels.py). A slice of 256 columns
+# keeps a fault confined to one 4 KB column tile visible in a 152064-wide
+# head: four rows of 2560 left out of a slice move it by (4 / 2560)^0.5 =
+# 0.04, five times the bf16 bound.
+RM_NORM_BOUND = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+RM_SLICE = 256
 # The serve driver's defaults, and rwkv6-3b's prompt batch.
 SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
 PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
 # flash_decode's timed cache lengths: the serve shape and long context.
 FD_LENGTHS = (MAX_SEQ, 4096, 32768)
+# Weight bytes a per-product timing round streams: over twice the 50 MB L2,
+# so every weight comes from device memory, as in a decode step.
+ROUND_BYTES = 128 << 20
 # Kernels that open every profiler window and are left out of its counts
 # and times (see `profiled`): torch.cuda._sleep's.
 PAD_LAUNCHES = 256
@@ -245,11 +280,7 @@ def check_rowstream(torch, dev) -> float:
     from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # qwen2-7b's and rwkv6-3b's decode products at 4 slots.
-    path = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
-            (4, 18944, 3584), (4, 3584, 152064),
-            (4, 2560, 2560), (4, 2560, 64), (4, 64, 2560), (4, 2560, 8960),
-            (4, 8960, 2560), (4, 2560, 65536)]
+    path = RM_PATH
     odd = [(m, k, n) for m in (1, 4, 33)
            for k, n in ((1000, 1000), (100, 37), (777, 4100), (64, 2056))]
     cases = [(s, "bfloat16") for s in path + odd] \
@@ -275,6 +306,92 @@ def check_rowstream(torch, dev) -> float:
           f"plain version (bf16 rtol 2e-2 atol 0.16, fp32 rtol 1e-5 atol "
           f"8e-5); max abs err at the path's shapes {worst_path!r}")
     return worst_path
+
+
+def rowstream_inputs(torch, gen, m, k, n, dtype):
+    """x (m, k) N(0, 1) and w (k, n) N(0, 1 / k) in `dtype`, so outputs
+    are about unit size."""
+    dev = gen.device
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev)
+         / math.sqrt(k)).to(dtype)
+    return x, w
+
+
+def slice_norm_error(torch, out, ref) -> float:
+    """Largest ||out - ref|| / ||ref|| over slices of RM_SLICE columns (all
+    rows of each)."""
+    import torch.nn.functional as F
+    d = out.float() - ref.float()
+    r = ref.float()
+    pad = -r.shape[1] % RM_SLICE
+    d, r = (F.pad(t, (0, pad)).view(t.shape[0], -1, RM_SLICE)
+            for t in (d, r))
+    return (d.square().sum((0, 2)).sqrt()
+            / r.square().sum((0, 2)).sqrt()).max().item()
+
+
+def check_rowstream_norms(torch, dev) -> dict:
+    """At the decode path's shapes (bf16, and fp32 at four of them):
+    RM_NORM_BOUND per slice against the plain version, and identical bits
+    from two calls. Returns the largest norm-wise error by dtype."""
+    from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
+    from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases = [(s, "bfloat16") for s in RM_PATH] \
+        + [(s, "float32") for s in RM_PATH[:2] + RM_PATH[5:7]]
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for (m, k, n), dt in cases:
+        x, w = rowstream_inputs(torch, gen, m, k, n, getattr(torch, dt))
+        out = rowstream_matmul(x, w)
+        again = rowstream_matmul(x, w)
+        torch.cuda.synchronize()
+        err = slice_norm_error(torch, out, rowstream_matmul_ref(x, w))
+        check(err <= RM_NORM_BOUND[dt],
+              f"rowstream_matmul {dt} ({m},{k})@({k},{n}): norm-wise error "
+              f"{err} per {RM_SLICE} columns (bound {RM_NORM_BOUND[dt]})")
+        check(torch.equal(out, again),
+              f"rowstream_matmul {dt} ({m},{k})@({k},{n}): two calls differ")
+        worst[dt] = max(worst[dt], err)
+    print(f"[kernels] rowstream_matmul: {len(cases)} path shapes within the "
+          f"norm-wise bound per {RM_SLICE} columns (bf16 2^-7, fp32 1e-5; "
+          f"largest {worst!r}); two calls give identical bits")
+    return worst
+
+
+def check_rowstream_launches(torch, dev) -> None:
+    """One device kernel per rowstream_matmul call and no allocation but
+    the output: 28 calls at qwen2-7b's wq shape, whose plan sums its K
+    split over clusters and the workspace."""
+    from repro_torch.kernels.rowstream_matmul import kernel
+    from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x, w = rowstream_inputs(torch, gen, *RM_PATH[0], torch.bfloat16)
+    p = kernel.plan_for(x, w)
+    check(p.groups > 1 and 0 < p.ws_floats * 4 * kernel.WS_SHARE
+          <= w.numel() * w.element_size(),
+          f"rowstream_matmul plan at {RM_PATH[0]}: {p}")
+    outs = [rowstream_matmul(x, w)]
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with profiled() as prof:
+            outs += [rowstream_matmul(x, w) for _ in range(28)]
+        allocs = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                  - before)
+        kernels = {e.key: e.count for e in _kernel_events(prof)}
+        if sum(kernels.values()) >= 28 and pads_kept(prof):
+            break
+        print(f"[profile] lost records: {kernels}, {pads_kept(prof)} of "
+              f"{PAD_LAUNCHES} pads kept; again")
+    check(sum(kernels.values()) == 28 and allocs == 28 and pads_kept(prof)
+          and all(any(n in k for n in RM_KERNELS) for k in kernels),
+          f"rowstream_matmul: 28 calls launched device kernels {kernels} "
+          f"and made {allocs} allocations (expected 28 kernels, 28 outputs)")
+    print(f"[kernels] rowstream_matmul: 28 calls at {RM_PATH[0]} ran device "
+          f"kernels {kernels} and allocated {allocs} tensors (the outputs); "
+          f"plan: {p.blocks} blocks, clusters of {p.cluster}, {p.groups} "
+          f"per tile, workspace {p.ws_floats * 4} bytes")
 
 
 def flash_cases() -> list:
@@ -678,6 +795,73 @@ def flash_phase(lengths=FD_LENGTHS) -> dict:
     return flash_timings(torch, ALL_ARCHS["qwen2-7b"], lengths)
 
 
+def rowstream_products(torch, shapes, baseline=False) -> list:
+    """Per launch at each (k, n) of `shapes`, x of SLOTS rows, bf16: device
+    time of the kernel and of torch.matmul over distinct weights of the
+    shape (ROUND_BYTES or more a round, so each comes cold from device
+    memory), the byte bound and, unless `baseline`, the plan."""
+    from repro_torch.kernels.rowstream_matmul import kernel
+    from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = []
+    for k, n in shapes:
+        copies = -(-ROUND_BYTES // (2 * k * n))
+        x, w = rowstream_inputs(torch, gen, SLOTS, k, n, torch.bfloat16)
+        ws = [w] + [rowstream_inputs(torch, gen, 1, k, n, torch.bfloat16)[1]
+                    for _ in range(copies - 1)]
+        ms = device_ms(lambda: [rowstream_matmul(x, w) for w in ws], 3,
+                       RM_KERNELS) / copies
+        lib = device_ms(lambda: [torch.matmul(x, w) for w in ws], 3) / copies
+        b, _ = bound(2 * (SLOTS * k + k * n + SLOTS * n), 2 * SLOTS * k * n,
+                     "bfloat16")
+        row = {"shape": [SLOTS, k, n], "us": ms * 1e3,
+               "library_us": lib * 1e3, "bound_us": b * 1e3}
+        text = ""
+        if not baseline:
+            p = kernel.plan_for(x, w)
+            row.update(blocks=p.blocks, cluster=p.cluster,
+                       splits=[p.cluster * g for _, _, g in p.classes],
+                       ws_bytes=p.ws_floats * 4)
+            text = (f"; {p.blocks} blocks in clusters of {p.cluster}, "
+                    f"splits per tile {row['splits']}, workspace "
+                    f"{row['ws_bytes']} bytes")
+        print(f"[product] ({SLOTS}, {k}) @ ({k}, {n}) bf16: kernel "
+              f"{row['us']!r} us, torch.matmul {row['library_us']!r} us, "
+              f"bound {row['bound_us']!r} us (kernel at "
+              f"{row['bound_us'] / row['us']!r} of it){text}")
+        rows.append(row)
+        del ws, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rowstream_phase(baseline=False) -> dict:
+    """rowstream_matmul alone: unless `baseline`, the one-kernel-per-call
+    check; then for qwen2-7b and rwkv6-3b at full width, the launches of
+    one decode step on the model's own weights (kernel, plain version and
+    torch.matmul) and one line per distinct product shape."""
+    import torch
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    if not baseline:
+        check_rowstream_launches(torch, torch.device("cuda"))
+    out = {}
+    for name, weights in (("qwen2-7b", qwen_weights),
+                          ("rwkv6-3b", rwkv_weights)):
+        cfg = ALL_ARCHS[name]
+        params = init_params(torch, cfg)
+        ws = weights(cfg, params)
+        shapes = list(dict.fromkeys(tuple(w.shape) for w in ws))
+        work = rowstream_work(torch, ws, SLOTS)
+        work["per"] = f"one {name} decode step at {SLOTS} slots"
+        time_works({f"rowstream_matmul on {name}": work})
+        out[name] = {"step": numbers(work)}
+        del params, ws, work
+        torch.cuda.empty_cache()
+        out[name]["products"] = rowstream_products(torch, shapes, baseline)
+    return out
+
+
 # --- phase 3: serve ------------------------------------------------------------
 
 def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
@@ -748,11 +932,12 @@ def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
     return diff
 
 
-def step_breakdown(torch, cfg, params, slots=SLOTS, max_seq=MAX_SEQ,
-                   steps=5) -> dict:
+def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
+                   max_seq=MAX_SEQ, steps=5) -> dict:
     """Device time of one decode step (after the first few), by kernel
     group, from torch.profiler over `steps` steps that each end with the
-    sampled tokens on the host."""
+    sampled tokens on the host; the step must run one rowstream_matmul
+    device kernel for each of its `rm_launches` launches."""
     from repro_torch.launch.serve import greedy_sample
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
@@ -771,11 +956,15 @@ def step_breakdown(torch, cfg, params, slots=SLOTS, max_seq=MAX_SEQ,
         prof = profile_calls(step, steps)
     total = _device_us(prof) / steps / 1e3
     check(total > 0, "the profiler recorded no device time for the step")
-    rm = _device_us(prof, RM_KERNELS) / steps / 1e3
-    reduce = _device_us(prof, ("splitk_reduce",)) / steps / 1e3
+    rm_us, rm_count = _device_kernels(prof, RM_KERNELS)
+    check(rm_count == rm_launches * steps,
+          f"{cfg.name}: {rm_count} rowstream_matmul device kernels in "
+          f"{steps} steps, expected {rm_launches} per step")
+    rm = rm_us / steps / 1e3
     fd = _device_us(prof, FD_KERNELS) / steps / 1e3
-    return {"device_ms": total, "rowstream_ms": rm, "reduce_ms": reduce,
-            "flash_ms": fd, "other_ms": total - rm - fd}
+    return {"device_ms": total, "rowstream_ms": rm,
+            "rowstream_kernels": rm_count // steps, "flash_ms": fd,
+            "other_ms": total - rm - fd}
 
 
 def rwkv_forward_phase(torch, cfg, params) -> dict:
@@ -966,19 +1155,27 @@ def time_works(works: dict) -> None:
 
 def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
     print(f"[profile] {name} decode step device time {bd['device_ms']!r} "
-          f"ms: rowstream_matmul {bd['rowstream_ms']!r} (of which split-K "
-          f"reduce {bd['reduce_ms']!r}), flash_decode {bd['flash_ms']!r}, "
+          f"ms: rowstream_matmul {bd['rowstream_ms']!r} "
+          f"({bd['rowstream_kernels']} device kernels per step), flash_decode "
+          f"{bd['flash_ms']!r}, "
           f"other torch kernels {bd['other_ms']!r}; device idle share at "
           f"the median step {1 - bd['device_ms'] / median_ms!r}")
 
 
 def main(argv=None) -> int:
+    global RM_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["flash_decode"],
+    ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul"],
                     help="run only this kernel's phase: the card line, its "
                          "build, its checks and its timings; no ok line")
+    ap.add_argument("--baseline", action="store_true",
+                    help="with --only rowstream_matmul: the tree's kernel "
+                         "predates the one-kernel design; time its device "
+                         "kernels and leave out the checks it lacks")
     args = ap.parse_args(argv)
+    if args.baseline and args.only != "rowstream_matmul":
+        ap.error("--baseline goes with --only rowstream_matmul")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1011,13 +1208,22 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {fn}: {line.strip()}")
 
+    if args.only == "rowstream_matmul":
+        if args.baseline:
+            RM_KERNELS = BASELINE_RM_KERNELS
+        check_rowstream(torch, dev)
+        check_rowstream_norms(torch, dev)
+        print(json.dumps({"rowstream_matmul": rowstream_phase(args.baseline)}))
+        print(card)
+        return 0
     errs = {"flash_decode": check_flash_decode(torch, dev)}
     if args.only == "flash_decode":
         flash_phase()
         print(card)
         return 0
     errs.update({"rowstream_matmul": check_rowstream(torch, dev),
-            "rwkv_scan": check_rwkv_scan(torch, dev)})
+                 "rwkv_scan": check_rwkv_scan(torch, dev)})
+    check_rowstream_norms(torch, dev)
 
     # Everything timed on the host clock or with CUDA events comes before
     # the first use of the profiler: its hooks stay behind and slow later
@@ -1094,7 +1300,7 @@ def main(argv=None) -> int:
           f"rwkv_scan {fb['scan_ms']!r}, torch.matmul {fb['matmul_ms']!r}, "
           f"other {fb['other_ms']!r}; device idle share of the host-timed "
           f"forward {1 - fb['device_ms'] / pf['forward_ms']!r}")
-    rbd = step_breakdown(torch, rcfg, params)
+    rbd = step_breakdown(torch, rcfg, params, 10 * rcfg.n_layers + 1)
     print_breakdown("rwkv6-3b", rbd, rs["median_step_ms"])
     works = {name: numbers(w) for name, w in works.items()}
     del params, pf["tokens"]
@@ -1109,12 +1315,13 @@ def main(argv=None) -> int:
         w["wall_ms"] = walls[name]
         w["per"] = f"one qwen2-7b decode step at {SLOTS} slots"
     time_works(qworks)
-    qbd = step_breakdown(torch, qcfg, params)
+    qbd = step_breakdown(torch, qcfg, params, 7 * qcfg.n_layers + 1)
     print_breakdown("qwen2-7b", qbd, sv["median_step_ms"])
     works.update((name, numbers(w)) for name, w in qworks.items())
     del params, qworks
     torch.cuda.empty_cache()
     long_fd = flash_phase(FD_LENGTHS[1:])
+    check_rowstream_launches(torch, dev)
 
     paths = {"qwen2-7b serve": sv["counts"], "rwkv6-3b forward": pf["counts"],
              "rwkv6-3b serve": rs["counts"]}

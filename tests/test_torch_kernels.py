@@ -66,26 +66,83 @@ def test_rowstream_matmul_rejects_bad_inputs():
         rowstream_matmul(torch.zeros((0, 8)), torch.zeros((8, 3)))
 
 
-# qwen2-7b's decode products at 4 slots, and odd shapes.
-@pytest.mark.parametrize("m,k,n", [(4, 3584, 3584), (4, 3584, 512),
-                                   (4, 3584, 18944), (4, 18944, 3584),
-                                   (4, 3584, 152064), (1, 100, 37),
-                                   (33, 1000, 1000), (4, 64, 4100)])
+# The decode products of qwen2-7b and rwkv6-3b at 4 slots, and odd shapes.
+RM_DECODE = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
+             (4, 18944, 3584), (4, 3584, 152064), (4, 2560, 2560),
+             (4, 2560, 64), (4, 64, 2560), (4, 2560, 8960), (4, 8960, 2560),
+             (4, 2560, 65536)]
+RM_ODD = [(1, 100, 37), (33, 1000, 1000), (4, 64, 4100), (1, 1000, 1000),
+          (4, 64, 2056)]
+SMS = 132
+# The heaviest block streams at most this many times the mean weight bytes
+# of a block, or one split unit more than the mean where blocks hold only a
+# few units: the product takes as long as its heaviest block, and a block
+# lighter than the rest costs nothing (a narrow last tile of a wide head
+# can take no more rows than a cluster's share of K).
+MAX_BLOCK_OVER_MEAN = 1.25
+
+
+@pytest.mark.parametrize("m,k,n", RM_DECODE + RM_ODD)
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_rowstream_plan_covers_and_keeps_rows(m, k, n, itemsize):
-    vec, threads, mt, kchunk, splits = rm_kernel.plan(m, k, n, itemsize,
-                                                      True, 132)
-    assert threads % 32 == 0 and 32 <= threads <= rm_kernel.MAX_THREADS
-    assert mt >= min(m, 8) and mt in (1, 2, 4, 8)
-    assert (splits - 1) * kchunk < k <= splits * kchunk    # K covered once
-    assert splits <= 65535
-    tile_bytes = threads * vec * itemsize
-    if n % (16 // itemsize) == 0:
-        assert vec * itemsize == 16
-        # A column tile is the whole row width, or exactly one DRAM row.
-        assert tile_bytes == 4096 or tile_bytes >= n * itemsize
-    else:
-        assert vec == 1
+    p = rm_kernel.plan(m, k, n, itemsize, True, SMS)
+    assert rm_kernel.plan(m, k, n, itemsize, True, SMS) is p    # cached
+    assert p.mt >= min(m, 8) and p.mt in (1, 2, 4, 8)
+    if (n * itemsize) % 16:
+        assert p.vec == 1                       # the scalar kernel
+        return
+    assert p.vec * itemsize == 16
+    assert 1 <= p.cluster <= rm_kernel.MAX_CLUSTER
+    # Columns and K are covered exactly once, K by non-empty splits that
+    # start on whole units, in every tile.
+    assert p.tiles * p.cols + p.cols_r == n and 0 <= p.cols_r < p.cols
+    assert p.cols * itemsize <= 4096
+    for _, _, groups in p.classes:
+        ranges = p.k_ranges(groups)
+        assert len(ranges) == groups * p.cluster
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(kb < ke and kb % p.granule == 0 for kb, ke in ranges)
+    weight = k * n * itemsize
+    # Runs of whole 4 KB rows where the row width allows it (wider than
+    # 4 KB, or dividing it), unless the product holds fewer than two such
+    # rows per SM: then a full wave of blocks comes first.
+    row = n * itemsize
+    if (row > 4096 or 4096 % row == 0) and weight >= 2 * SMS * 4096:
+        assert p.run_bytes % 4096 == 0
+    # The fp32 workspace is at most 1/16 of the weight's bytes.
+    assert p.ws_floats * 4 * 16 <= weight
+    assert (p.ws_floats > 0) == (p.groups > 1)
+    assert p.counters == (p.mtiles * (p.tiles + 1) * p.cluster
+                          if p.groups > 1 else 0)
+    # The grid fills one wave: a block on every SM, and the decode
+    # products' bf16 grids fit at two blocks per SM; products under
+    # SMALL_BYTES fit at one block per SM, with a block on half the SMs.
+    small = weight < rm_kernel.SMALL_BYTES
+    assert p.blocks >= (SMS + 1) // 2 if small else p.blocks >= SMS
+    if (m, k, n) in RM_DECODE and itemsize == 2:
+        assert p.clusters <= rm_kernel.uniform_slots(
+            SMS, 1 if small else 2)[p.cluster - 1]
+    # Balanced by bytes.
+    bytes_ = p.block_bytes()
+    assert sum(bytes_) == weight
+    mean = weight / len(bytes_)
+    assert max(bytes_) <= max(MAX_BLOCK_OVER_MEAN * mean,
+                              mean + p.granule * p.cols * itemsize)
+    # x's slice and the shared memory fit.
+    assert p.rows_max() * p.mt * itemsize <= rm_kernel.X_BYTES
+    assert p.smem <= rm_kernel.SMEM_PER_BLOCK
+
+
+def test_rowstream_plan_scalar_and_row_tiles():
+    """An unaligned weight takes the scalar kernel; m > 8 takes tiles of 8
+    rows of x; a narrow row is streamed in whole 4 KB runs (wk, wv)."""
+    assert rm_kernel.plan(4, 3584, 3584, 2, False, SMS).vec == 1
+    p = rm_kernel.plan(33, 2560, 2560, 2, True, SMS)
+    assert (p.mt, p.mtiles) == (8, 5)
+    p = rm_kernel.plan(4, 3584, 512, 2, True, SMS)
+    assert (p.tiles, p.cols, p.cols_r) == (1, 512, 0)
+    assert p.granule * 512 * 2 == 4096
 
 
 # --- flash decode ------------------------------------------------------------
