@@ -53,10 +53,14 @@ S 4096 and 32768; it prints no ``ok`` line. ``--only rowstream_matmul``
 likewise: its build, its checks, the one-kernel check, then one line per
 distinct product shape of the qwen2-7b and rwkv6-3b decode steps (kernel,
 torch.matmul and byte-bound time per launch, the plan's blocks, splits and
-workspace) and each step's totals. ``--baseline`` runs it on a tree whose
-rowstream_matmul predates the one-kernel design (copy this script into
-that tree's root): it leaves out the checks and plan columns that design
-lacks and times every device kernel of the calls.
+workspace) and each step's totals. ``--only rwkv_scan``: its build, its
+checks, then the 32 launches of one rwkv6-3b forward at full width, each
+on its own inputs synthesised from a seed with rwkv6's decays (wall and
+device time, plain time, bound) and the kernel's plan. ``--baseline``
+runs either on a tree whose kernel predates its redesign (copy this
+script into that tree's root): it leaves out the checks and plan that the
+redesign added and times the old kernel's device kernels (for rwkv_scan
+also the plain version, the same code on both trees).
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA card, or a directory without the
@@ -90,7 +94,10 @@ RM_KERNELS = ("rowstream_tiles", "rowstream_scalar")
 # rowstream_matmul's device kernels before the one-kernel design
 # (`--baseline`).
 BASELINE_RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
-RS_KERNELS = ("rwkv_scan_kernel",)
+RS_KERNELS = ("rwkv_scan_head",)
+# rwkv_scan's device kernel before the one-block-per-head design
+# (`--baseline`).
+BASELINE_RS_KERNELS = ("rwkv_scan_kernel",)
 # Products of one decode step, per layer (plus the head).
 QWEN_PRODUCTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                  ("attn", "wo"), ("ffn", "w_gate"), ("ffn", "w_up"),
@@ -560,16 +567,13 @@ def scan_inputs(torch, gen, b, s, H, hd, dtype="float32", decay="test"):
     return [x.to(getattr(torch, dtype)) for x in (r, k, v, w)] + [u]
 
 
-def check_rwkv_scan(torch, dev) -> float:
-    """Returns the largest error at rwkv6-3b's full-width shape."""
-    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
-    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+def rwkv_scan_cases() -> list:
+    """(shape, chunk, decay, dtype) of check_rwkv_scan:
+    tests/test_kernels.py's three shapes and its extreme-decay case; the
+    full width; ragged s at the model's head dim (the default chunk of 16
+    does not divide them), with extreme and with the model's decays too;
+    bf16 inputs."""
     full = (PREFILL_B, PREFILL_S, 40, 64)
-    # (shape, chunk, decay, dtype): tests/test_kernels.py's three shapes
-    # and its extreme-decay case; the full width; ragged s at the model's
-    # head dim (the default chunk of 16 does not divide them), with
-    # extreme and with the model's decays too; bf16 inputs.
     cases = [((2, 64, 3, 16), 16, "test", "float32"),
              ((1, 128, 2, 32), 32, "test", "float32"),
              ((2, 48, 4, 16), 8, "test", "float32"),
@@ -581,28 +585,44 @@ def check_rwkv_scan(torch, dev) -> float:
               ((2, 64, 3, 16), 16, "test", "bfloat16"),
               ((2, 1000, 3, 64), None, "test", "bfloat16"),
               (full, None, "test", "bfloat16")]
+    return cases
+
+
+def scan_verdict(torch, x, o, S, decay: str, dt: str) -> tuple:
+    """(within tolerance, max err of o, of S) of one rwkv_scan result
+    against its plain version on the same inputs."""
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+    ro, rS = rwkv_scan_ref(*x)
+    finite = bool(o.isfinite().all()) and bool(S.isfinite().all())
+    atol = 2e-3 if decay == "extreme" else 1e-3
+    # o in bf16 rounds once from fp32 sums taken in another order:
+    # tests/test_kernels.py's bf16 tolerance, 2e-2.
+    o_tol = (2e-2, 2e-2) if dt == "bfloat16" else (1e-3, atol)
+    err_o = (o.float() - ro.float()).abs()
+    err_s = (S - rS).abs()
+    ok = finite \
+        and bool((err_o <= o_tol[1] + o_tol[0] * ro.float().abs()).all()) \
+        and bool((err_s <= atol + 1e-3 * rS.abs()).all()) \
+        and o.dtype == x[0].dtype and o.shape == x[0].shape \
+        and S.dtype == torch.float32
+    return ok, err_o.max().item(), err_s.max().item()
+
+
+def check_rwkv_scan(torch, dev) -> float:
+    """Returns the largest error at rwkv6-3b's full-width shape."""
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases = rwkv_scan_cases()
     worst_full = 0.0
     for shape, chunk, decay, dt in cases:
         x = scan_inputs(torch, gen, *shape, dtype=dt, decay=decay)
         o, S = rwkv_scan(*x, chunk=chunk)
         torch.cuda.synchronize()
-        ro, rS = rwkv_scan_ref(*x)
-        check(bool(o.isfinite().all()) and bool(S.isfinite().all()),
-              f"rwkv_scan {shape} {dt} decay {decay}: not finite")
-        atol = 2e-3 if decay == "extreme" else 1e-3
-        # o in bf16 rounds once from fp32 sums taken in another order:
-        # tests/test_kernels.py's bf16 tolerance, 2e-2.
-        o_tol = (2e-2, 2e-2) if dt == "bfloat16" else (1e-3, atol)
-        err_o = (o.float() - ro.float()).abs()
-        err_s = (S - rS).abs()
-        ok = bool((err_o <= o_tol[1] + o_tol[0] * ro.float().abs()).all()) \
-            and bool((err_s <= atol + 1e-3 * rS.abs()).all())
-        check(ok and o.dtype == x[0].dtype and o.shape == x[0].shape
-              and S.dtype == torch.float32,
-              f"rwkv_scan {shape} chunk {chunk} {dt} decay {decay}: "
-              f"max err o {err_o.max().item()}, S {err_s.max().item()}")
-        if shape == full and dt == "float32":
-            worst_full = max(err_o.max().item(), err_s.max().item())
+        ok, err_o, err_s = scan_verdict(torch, x, o, S, decay, dt)
+        check(ok, f"rwkv_scan {shape} chunk {chunk} {dt} decay {decay}: "
+                  f"max err o {err_o}, S {err_s}")
+        if shape == cases[4][0] and dt == "float32":
+            worst_full = max(err_o, err_s)
     # No backward kernel: a CUDA input that requires grad raises.
     x = scan_inputs(torch, gen, 1, 4, 1, 16)
     x[0].requires_grad_(True)
@@ -834,6 +854,49 @@ def rowstream_products(torch, shapes, baseline=False) -> list:
         del ws, w
     torch.cuda.empty_cache()
     return rows
+
+
+def scan_phase(baseline=False) -> dict:
+    """rwkv_scan alone: the launches of one rwkv6-3b forward at full width
+    (b PREFILL_B x s PREFILL_S, fp32, one per layer), each on its own
+    inputs, synthesised from a seed with rwkv6's own decays
+    (``scan_inputs(..., decay="model")``): kernel wall and device time,
+    plain time and bound, and the kernel's plan. A `baseline` run leaves
+    out the plan and the plain version, which is the same code on both
+    trees and takes minutes under the profiler (about 260,000 kernels per
+    forward)."""
+    import torch
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.models.rwkv6 import HEAD_DIM, n_heads
+    cfg = ALL_ARCHS["rwkv6-3b"]
+    H = n_heads(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    launches = [tuple(scan_inputs(torch, gen, PREFILL_B, PREFILL_S, H,
+                                  HEAD_DIM, decay="model"))
+                for _ in range(cfg.n_layers)]
+    work = scan_work(torch, launches)
+    if baseline:
+        work["plain"] = None
+    work["per"] = (f"one rwkv6-3b forward at b {PREFILL_B} x s {PREFILL_S}, "
+                   f"inputs synthesised with rwkv6's decays")
+    time_works({"rwkv_scan": work})
+    out = numbers(work)
+    n = work["launches_per_step"]
+    plain_ms = None if baseline else work["plain_ms"] / n
+    print(f"[time] rwkv_scan per launch: kernel {work['ms'] / n!r} ms (wall "
+          f"{work['wall_ms'] / n!r}), plain {plain_ms!r} ms, "
+          f"bound {work['bound_ms'] / n!r} ms; kernel at "
+          f"{work['bound_ms'] / work['ms']!r} of its bound")
+    if not baseline:
+        from repro_torch.kernels.rwkv_scan import kernel
+        p = kernel.plan(PREFILL_B, H, PREFILL_S,
+                        kernel.default_chunk(HEAD_DIM), 4)
+        out["plan"] = {"blocks": p.blocks, "tiles": p.tiles,
+                       "smem": p.smem, "blocks_per_sm": p.blocks_per_sm}
+        print(f"[plan] rwkv_scan: {p.blocks} blocks of {kernel.THREADS} "
+              f"threads, {p.tiles} tiles each, {p.smem} bytes of shared "
+              f"memory a block, {p.blocks_per_sm} blocks per SM")
+    return out
 
 
 def rowstream_phase(baseline=False) -> dict:
@@ -1137,7 +1200,8 @@ def time_works(works: dict) -> None:
             w["wall_ms"] = timed_ms(w["kernel"], w["reps"])
     for name, w in works.items():
         w["ms"] = device_ms(w["kernel"], w["reps"], w["names"])
-        w["plain_ms"] = device_ms(w["plain"], w.get("plain_reps", w["reps"]))
+        w["plain_ms"] = (device_ms(w["plain"], w.get("plain_reps", w["reps"]))
+                         if w["plain"] is not None else None)
         w["library_ms"] = (device_ms(w["library"], w["reps"])
                            if w["library"] is not None else None)
         print(f"[time] {name}, {w['launches_per_step']} launches of "
@@ -1163,19 +1227,21 @@ def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
 
 
 def main(argv=None) -> int:
-    global RM_KERNELS
+    global RM_KERNELS, RS_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul"],
+    ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
+                                       "rwkv_scan"],
                     help="run only this kernel's phase: the card line, its "
                          "build, its checks and its timings; no ok line")
     ap.add_argument("--baseline", action="store_true",
-                    help="with --only rowstream_matmul: the tree's kernel "
-                         "predates the one-kernel design; time its device "
-                         "kernels and leave out the checks it lacks")
+                    help="with --only rowstream_matmul or rwkv_scan: the "
+                         "tree's kernel predates its redesign; time its "
+                         "device kernels and leave out the checks and plan "
+                         "it lacks")
     args = ap.parse_args(argv)
-    if args.baseline and args.only != "rowstream_matmul":
-        ap.error("--baseline goes with --only rowstream_matmul")
+    if args.baseline and args.only not in ("rowstream_matmul", "rwkv_scan"):
+        ap.error("--baseline goes with --only rowstream_matmul or rwkv_scan")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1214,6 +1280,13 @@ def main(argv=None) -> int:
         check_rowstream(torch, dev)
         check_rowstream_norms(torch, dev)
         print(json.dumps({"rowstream_matmul": rowstream_phase(args.baseline)}))
+        print(card)
+        return 0
+    if args.only == "rwkv_scan":
+        if args.baseline:
+            RS_KERNELS = BASELINE_RS_KERNELS
+        check_rwkv_scan(torch, dev)
+        print(json.dumps({"rwkv_scan": scan_phase(args.baseline)}))
         print(card)
         return 0
     errs = {"flash_decode": check_flash_decode(torch, dev)}

@@ -2,23 +2,80 @@
 
 Replaces the Pallas TPU kernel ``rwkv_scan``
 (``src/repro/kernels/rwkv_scan/kernel.py``). The CUDA source says how the
-scan is split; this module picks the chunk length, moves the operands to
-the (b, H, s, hd) layout the kernel streams, and launches it on PyTorch's
+scan is split; this module plans the launch (one block per (b, h), the
+tiles a chunk is cut into, the block's shared memory), moves the operands
+to the (b, H, s, 64) layout the kernel streams (padding a smaller head dim
+to 64 with r = k = v = 0, w = 1 and u = 0), and launches it on PyTorch's
 current stream.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from ...serve.kv_cache import ROW_BYTES
 from .. import DTYPE_CODES, build
 
-MAX_HEAD_DIM = 64      # csrc MAX_HD
+MAX_HEAD_DIM = 64      # csrc HD: the kernel's head dim; smaller ones padded
 MAX_CHUNK = 64         # csrc MAX_CHUNK
-MAX_HEADS = 65535      # b * H: the grid's y dimension
+MAX_HEADS = 65535      # b * H
+TILE = 16              # csrc TILE: tokens per tile
+BLK = 4                # csrc BLK: tokens per block of the tile's matrix A
+STAGES = 3             # csrc STAGES: copies of whole tiles in flight
+THREADS = 256          # csrc THREADS: four state and four prep warps
+# csrc prep buffer, in floats: r_dec, k_dec, v, A (hi, lo pairs) in
+# padded rows, and W.
+PREP_FLOATS = TILE * (3 * (MAX_HEAD_DIM + 8) + (2 * TILE + 8)) + MAX_HEAD_DIM
+O_FLOATS = TILE * (MAX_HEAD_DIM + 4)    # csrc o staging rows
+# csrc prep scratch for A: 96 rows of MAX_HEAD_DIM + 4 floats.
+SCRATCH_FLOATS = 96 * (MAX_HEAD_DIM + 4)
+# One SM of an H100: shared memory, the most one block may take, and what
+# the runtime reserves per block.
+SM_SMEM = 233472
+BLOCK_SMEM_MAX = 232448
+SMEM_RESERVED = 1024
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: `blocks` blocks (one per (b, h)) of THREADS threads,
+    each walking `tiles` tiles of at most TILE tokens, with `smem` bytes of
+    dynamic shared memory."""
+    blocks: int
+    tiles: int
+    smem: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return SM_SMEM // (self.smem + SMEM_RESERVED)
+
+
+def smem_bytes(itemsize: int) -> int:
+    """csrc ``smem_bytes<T>``: the ring of STAGES tiles of r, k, v, w, two
+    prep buffers, the o staging rows, the prep scratch, u and one mbarrier
+    per stage."""
+    return (STAGES * 4 * TILE * MAX_HEAD_DIM * itemsize
+            + (2 * PREP_FLOATS + O_FLOATS + SCRATCH_FLOATS + MAX_HEAD_DIM) * 4
+            + STAGES * 8)
+
+
+def tile_bounds(s: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, length) of each tile the kernel walks, in order (csrc
+    ``tile_at``): chunks of `chunk` tokens, each cut into tiles of TILE
+    tokens and a ragged rest, so no tile straddles a chunk."""
+    out = []
+    for c0 in range(0, s, chunk):
+        end = min(c0 + chunk, s)
+        out += [(t0, min(TILE, end - t0)) for t0 in range(c0, end, TILE)]
+    return out
+
+
+def plan(b: int, H: int, s: int, chunk: int, itemsize: int) -> Plan:
+    return Plan(blocks=b * H, tiles=len(tile_bounds(s, chunk)),
+                smem=smem_bytes(itemsize))
 
 
 @functools.cache
@@ -55,23 +112,49 @@ def default_chunk(hd: int) -> int:
     return min(MAX_CHUNK, _row_chunk(hd, 4))
 
 
+def _heads_major(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """(b, s, H, hd) -> contiguous (b, H, s, 64); channels past hd hold
+    `fill`."""
+    b, s, H, hd = x.shape
+    if hd == MAX_HEAD_DIM:
+        return x.transpose(1, 2).contiguous()
+    out = torch.full((b, H, s, MAX_HEAD_DIM), fill, dtype=x.dtype,
+                     device=x.device)
+    out[..., :hd] = x.transpose(1, 2)
+    return out
+
+
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               chunk: int | None = None) -> tuple:
     """Launch the kernel on checked CUDA tensors (see ``ops``)."""
+    return launch(_function(), r, k, v, w, u, chunk)
+
+
+def launch(fn, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, chunk: int | None = None):
+    """:func:`rwkv_scan` through the C entry point `fn` (the built
+    library's, or a variant's with the same signature)."""
     b, s, H, hd = r.shape
     C = chunk if chunk is not None else default_chunk(hd)
-    rr, kk, vv, ww = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
-    u32 = u.float().contiguous()
-    o = torch.empty((b, H, s, hd), dtype=r.dtype, device=r.device)
-    s_final = torch.empty((b, H, hd, hd), dtype=torch.float32,
-                          device=r.device)
-    err = _function()(
+    p = plan(b, H, s, C, r.element_size())
+    rr, kk, vv = (_heads_major(x, 0.0) for x in (r, k, v))
+    ww = _heads_major(w, 1.0)
+    u32 = torch.zeros((H, MAX_HEAD_DIM), dtype=torch.float32,
+                      device=r.device)
+    u32[:, :hd] = u
+    o = torch.empty((b, H, s, MAX_HEAD_DIM), dtype=r.dtype, device=r.device)
+    s_final = torch.empty((b, H, MAX_HEAD_DIM, MAX_HEAD_DIM),
+                          dtype=torch.float32, device=r.device)
+    err = fn(
         rr.data_ptr(), kk.data_ptr(), vv.data_ptr(), ww.data_ptr(),
         u32.data_ptr(), o.data_ptr(), s_final.data_ptr(),
-        b, H, s, hd, C, DTYPE_CODES[r.dtype],
+        b, H, s, C, DTYPE_CODES[r.dtype], p.smem,
         torch.cuda.current_stream(r.device).cuda_stream)
     if err:
         raise RuntimeError(f"rwkv_scan launch failed: CUDA error {err} for "
                            f"r {tuple(r.shape)} {r.dtype}, chunk {C}")
+    if hd < MAX_HEAD_DIM:
+        o = o[..., :hd]
+        s_final = s_final[:, :, :hd, :hd].contiguous()
     return o.transpose(1, 2), s_final
