@@ -17,13 +17,24 @@ GPU, from the root of a checkout:
    device kernel and one allocation (the output) per call.
 3. Drives the main paths at full width in bf16 with random weights from a
    seed, each with the launch counters set to 0 just before it and read
-   just after:
+   just after, each model freed before the next:
    * qwen2-7b served through ``repro_torch.launch.serve`` with the
      driver's defaults (12 requests, 4 slots, prompt 16, 24 new tokens,
      max_seq 128): every step goes through flash_decode and
      rowstream_matmul. One decode step's logits are held against the same
      step on the plain path, which also serves the same requests, to count
-     the greedy tokens that agree. The weights are then freed.
+     the greedy tokens that agree. Then ``forward`` on 4 x 1024 prompt
+     tokens (plain torch ops: no kernel launches), and the first 64 tokens
+     of each prompt stepped through ``decode_step`` against forward's
+     logits: reported in bf16, held in fp32 (weights from the same seed,
+     an fp32 KV cache) within 0.15.
+   * granite-moe-3b served as qwen2-7b (32 flash_decode and 161
+     rowstream_matmul launches a step: attention, router and head
+     products; the expert products are torch.einsum); each layer of one
+     step held against the plain path on the same input in bf16, and the
+     whole step in fp32, with the (token, layer) routing decisions that
+     differ between the paths printed with their gate-probability gaps;
+     then ``forward`` on 4 x 1024 tokens.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -34,11 +45,12 @@ GPU, from the root of a checkout:
    kernel's launches of one decode step (flash_decode, rowstream_matmul)
    or one forward (rwkv_scan): the kernel's wall time on the device's clock
    from CUDA events, then device times from torch.profiler, and profiled
-   splits of an rwkv6-3b forward and of a decode step of each model; each
+   splits of each forward and of a decode step of each model; each
    profiled window must hold as many device kernels per call as a
    profiled single call, or the run fails. All host-clock and CUDA-event
-   timings come before the first use of the profiler, so the qwen2-7b
-   weights are made again from the same seed for its profiled part. Then
+   timings come before the first use of the profiler, so the qwen2-7b and
+   granite weights are made again from the same seed for their profiled
+   parts. Then
    flash_decode shows one device kernel and one allocation (the output)
    per call, and is timed at long context: 28 layers' caches of S 4096
    and 32768 slots, pos S - 1. Each profiled decode step must run one
@@ -69,6 +81,7 @@ repo's ``src/``. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -122,9 +135,17 @@ RM_PATH = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
 # 0.04, five times the bf16 bound.
 RM_NORM_BOUND = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 RM_SLICE = 256
-# The serve driver's defaults, and rwkv6-3b's prompt batch.
+# Defaults of launch/serve.py, and the prompt batch of each forward.
 SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
 PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
+GRANITE = "granite-moe-3b-a800m"
+# rowstream_matmul launches per layer of a decode step: qwen2-7b's seven
+# products, rwkv6-3b's ten, granite's q, k, v, o and router (its expert
+# products are torch.einsum, as in the reference); plus one for the head.
+RM_PER_LAYER = {"qwen2-7b": 7, "rwkv6-3b": 10, GRANITE: 5}
+# Names of the torch.profiler ranges that `labelled` opens; left out of
+# every device-kernel count and time, like the pads.
+LABEL = "smoke::"
 # flash_decode's timed cache lengths: the serve shape and long context.
 FD_LENGTHS = (MAX_SEQ, 4096, 32768)
 # Weight bytes a per-product timing round streams: over twice the 50 MB L2,
@@ -198,11 +219,13 @@ def profiled(cpu: bool = False):
 
 def _kernel_events(prof, pads=False) -> list:
     """The GPU kernels of a profile, by name: the pad kernels of
-    :func:`profiled`, or (by default) every other."""
+    :func:`profiled`, or (by default) every other. The device-side ranges
+    of :func:`labelled` are not kernels."""
     import torch
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and (PAD_KERNEL in e.key) == pads]
+            and (PAD_KERNEL in e.key) == pads
+            and not e.key.startswith(LABEL)]
 
 
 def _device_kernels(prof, names=None) -> tuple[float, int]:
@@ -263,9 +286,120 @@ def bound(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 @contextlib.contextmanager
+def labelled(*targets):
+    """Run each (module, function name) of `targets` inside a
+    torch.profiler range named LABEL + name for the duration, so that
+    :func:`op_split` can tell its kernels apart (a measurement only)."""
+    from torch.profiler import record_function
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, fn in saved:
+        def wrapper(*args, _fn=fn, _label=LABEL + name, **kwargs):
+            with record_function(_label):
+                return _fn(*args, **kwargs)
+        setattr(mod, name, wrapper)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
+             products: bool) -> dict:
+    """Device ms per call, by part, of a profile that recorded host ops
+    (``profile_calls(..., cpu=True)``). The device kernels that a part of
+    `kernel_parts` (part -> device kernel names) names go to that part.
+    Each other kernel goes to the part of `label_parts` (name given to
+    :func:`labelled` -> part) of the innermost labelled range around the
+    host op that launched it; else, with `products`, to "products" if an
+    aten::matmul launched it; else to "other", which also takes device
+    time no host op claims. "device" is the total."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+    named = [n for names in kernel_parts.values() for n in names]
+    us = {part: _device_us(prof, names)
+          for part, names in kernel_parts.items()}
+    us.update({part: 0.0 for part in label_parts.values()})
+    if products:
+        us["products"] = 0.0
+    for op in prof.events():
+        if op.device_type != cpu or not op.kernels:
+            continue
+        chain, e = [], op
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        labels = [n[len(LABEL):] for n in chain if n.startswith(LABEL)]
+        owner = next((label_parts[n] for n in labels if n in label_parts),
+                     None)
+        if owner is None and products and "aten::matmul" in chain:
+            owner = "products"
+        if owner is None:
+            continue
+        us[owner] += sum(k.duration for k in op.kernels
+                         if not k.name.startswith(LABEL)
+                         and PAD_KERNEL not in k.name
+                         and not any(n in k.name for n in named))
+    total = _device_us(prof)
+    out = {part: t / reps / 1e3 for part, t in us.items()}
+    out["other"] = (total - sum(us.values())) / reps / 1e3
+    out["device"] = total / reps / 1e3
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routing(calls: list):
+    """Append (gate probabilities, chosen experts) of every MoE layer's
+    top-k to `calls` for the duration, in layer order."""
+    from repro_torch.models import moe
+    top_k = moe.top_k
+
+    def record(probs, k):
+        vals, idx = top_k(probs, k)
+        calls.append((probs.float().reshape(-1, probs.shape[-1]).clone(),
+                      idx.reshape(-1, k).clone()))
+        return vals, idx
+
+    moe.top_k = record
+    try:
+        yield
+    finally:
+        moe.top_k = top_k
+
+
+def routing_flips(kernel_calls: list, plain_calls: list) -> list:
+    """(layer, token, gap, shift) of each token that one MoE layer routes
+    to another set of experts on the kernel path than on the plain path:
+    gap is the plain path's k-th minus (k+1)-th largest gate probability,
+    shift the largest change of any of the token's gate probabilities
+    between the paths. A flip that rounding explains has gap <= 2 shift."""
+    flips = []
+    for layer, ((pk, ik), (pp, ip)) in enumerate(zip(kernel_calls,
+                                                      plain_calls)):
+        k = ik.shape[-1]
+        differs = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        top = pp.sort(-1, descending=True).values
+        for t in differs.nonzero().flatten().tolist():
+            gap = (top[t, k - 1] - top[t, k]).item() if k < top.shape[-1] \
+                else float("inf")
+            flips.append((layer, t, gap, (pk[t] - pp[t]).abs().max().item()))
+    return flips
+
+
+def print_flips(what: str, flips: list, decisions: int) -> None:
+    print(f"[routing] {what}: {len(flips)} of {decisions} (token, layer) "
+          f"routing decisions differ between kernel and plain path"
+          + "".join(f"; layer {layer} token {t}: gap between k-th and "
+                    f"(k+1)-th gate probability {gap!r}, largest shift "
+                    f"{shift!r}" for layer, t, gap, shift in flips))
+
+
+@contextlib.contextmanager
 def plain_path():
     """Route the model's products and attention to the plain versions for
-    the duration (a comparison only; the port itself never does this)."""
+    the duration (a comparison only; the port itself never does this).
+    models/moe.py takes its router product from ``layers.matmul``, so the
+    patched ``layers.rowstream_matmul`` covers it too."""
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
     from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
@@ -962,24 +1096,46 @@ def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
             "tokens": {r.rid: r.out_tokens for r in b.completed}}
 
 
-def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
-    """Feed 8 steps on the kernel path, then run step 8 from copies of the
-    same cache on the kernel path and on the plain path."""
+def fed_steps(torch, ad, params, requests_tokens, slots, max_seq,
+              steps=8):
+    """A decode state after `steps` greedy steps on the kernel path from
+    the first token of each of the first `slots` requests, and the next
+    tokens."""
     from repro_torch.launch.serve import greedy_sample
-    from repro_torch.models.registry import get_adapter
-    ad = get_adapter(cfg)
     cache = ad.init_decode_state(slots, max_seq, device="cuda")
     tok = torch.tensor([[t[0]] for t in requests_tokens[:slots]],
                        dtype=torch.int32, device="cuda")
     with torch.inference_mode():
-        for pos in range(8):
+        for pos in range(steps):
             logits, cache = ad.decode(params, {"tokens": tok}, cache, pos)
             tok = greedy_sample(logits)[:, None]
+    return cache, tok
+
+
+def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
+    """Feed 8 steps on the kernel path, then run step 8 from copies of the
+    same cache on the kernel path and on the plain path. For an MoE model
+    also reports the routing decisions that differ between the paths; each
+    must be one that rounding explains."""
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    cache, tok = fed_steps(torch, ad, params, requests_tokens, slots,
+                           max_seq)
+    rk, rp = [], []
+    with torch.inference_mode():
         plain_cache = {k: v.clone() for k, v in cache.items()}
-        lk, _ = ad.decode(params, {"tokens": tok}, cache, 8)
-        with plain_path():
+        with recorded_routing(rk):
+            lk, _ = ad.decode(params, {"tokens": tok}, cache, 8)
+        with plain_path(), recorded_routing(rp):
             lp, _ = ad.decode(params, {"tokens": tok}, plain_cache, 8)
     torch.cuda.synchronize()
+    if cfg.moe:
+        flips = routing_flips(rk, rp)
+        print_flips(f"{cfg.name} {cfg.dtype} step at pos 8", flips,
+                    slots * len(rk))
+        check(all(gap <= 2 * shift for _, _, gap, shift in flips),
+              f"{cfg.name}: a routing decision differs between the paths "
+              f"by more than rounding explains: {flips}")
     V = params["lm_head"].shape[1]
     check(tuple(lk.shape) == (slots, 1, V) and bool(lk.isfinite().all()),
           f"kernel-path logits {tuple(lk.shape)} not finite")
@@ -989,18 +1145,21 @@ def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
           f"kernel-path logits differ from the plain path by {diff} "
           f"(> {LOGITS_ATOL})")
     agree = int((lk.argmax(-1) == lp.argmax(-1)).sum().item())
-    print(f"[logits] step at pos 8, {slots} slots: max |kernel - plain| = "
+    print(f"[logits] {cfg.name} {cfg.dtype} step at pos 8, {slots} slots: "
+          f"max |kernel - plain| = "
           f"{diff!r} (tolerance {LOGITS_ATOL}; max |logit| {scale!r}); "
           f"greedy argmax agrees in {agree}/{slots} slots")
     return diff
 
 
 def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
-                   max_seq=MAX_SEQ, steps=5) -> dict:
+                   max_seq=MAX_SEQ, steps=5, labels=()) -> dict:
     """Device time of one decode step (after the first few), by kernel
     group, from torch.profiler over `steps` steps that each end with the
     sampled tokens on the host; the step must run one rowstream_matmul
-    device kernel for each of its `rm_launches` launches."""
+    device kernel for each of its `rm_launches` launches. With `labels`
+    ((module, name, part) each) host ops are recorded too, and the device
+    time of those functions is split out of "other" (:func:`op_split`)."""
     from repro_torch.launch.serve import greedy_sample
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
@@ -1014,9 +1173,9 @@ def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
         state["pos"] += 1
         greedy_sample(logits).cpu()
 
-    with torch.inference_mode():
+    with torch.inference_mode(), labelled(*[(m, n) for m, n, _ in labels]):
         step()
-        prof = profile_calls(step, steps)
+        prof = profile_calls(step, steps, cpu=bool(labels))
     total = _device_us(prof) / steps / 1e3
     check(total > 0, "the profiler recorded no device time for the step")
     rm_us, rm_count = _device_kernels(prof, RM_KERNELS)
@@ -1025,9 +1184,18 @@ def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
           f"{steps} steps, expected {rm_launches} per step")
     rm = rm_us / steps / 1e3
     fd = _device_us(prof, FD_KERNELS) / steps / 1e3
-    return {"device_ms": total, "rowstream_ms": rm,
-            "rowstream_kernels": rm_count // steps, "flash_ms": fd,
-            "other_ms": total - rm - fd}
+    out = {"device_ms": total, "rowstream_ms": rm,
+           "rowstream_kernels": rm_count // steps, "flash_ms": fd,
+           "other_ms": total - rm - fd}
+    if labels:
+        split = op_split(prof, steps, {"rowstream_matmul": RM_KERNELS,
+                                       "flash_decode": FD_KERNELS},
+                         {n: part for _, n, part in labels}, products=False)
+        out["parts"] = {part: split[part] for _, _, part in labels}
+        check(all(t > 0 for t in out["parts"].values()),
+              f"{cfg.name} step: a part took no device time: {split}")
+        out["other_ms"] -= sum(out["parts"].values())
+    return out
 
 
 def rwkv_forward_phase(torch, cfg, params) -> dict:
@@ -1039,14 +1207,12 @@ def rwkv_forward_phase(torch, cfg, params) -> dict:
     reported only, the whole forward on the plain path, the first
     DECODE_T tokens through decode_step, and the plain path's logits
     after a one-ulp change of the embedding (see rwkv_fp32_phase)."""
-    import numpy as np
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.models import rwkv6
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
     V = params["lm_head"].shape[1]
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        1, cfg.vocab, (PREFILL_B, PREFILL_S))).to("cuda")
+    tokens = prompt_tokens(torch, cfg)
     batch = {"tokens": tokens}
     out = {"tokens": tokens}
     with torch.inference_mode():
@@ -1122,16 +1288,227 @@ def rwkv_forward_phase(torch, cfg, params) -> dict:
     return out
 
 
-def decode_logits(torch, ad, params, tokens):
+def decode_logits(torch, ad, params, tokens, cache_dtype=None):
     """Logits (b, DECODE_T, V) fp32 of the first DECODE_T tokens of
-    `tokens`, stepped one by one through decode_step."""
-    state = ad.init_decode_state(tokens.shape[0], MAX_SEQ, device="cuda")
+    `tokens`, stepped one by one through decode_step; a KV cache in
+    `cache_dtype` where given (bf16 by default, as in the reference)."""
+    kw = {} if cache_dtype is None else {"dtype": cache_dtype}
+    state = ad.init_decode_state(tokens.shape[0], MAX_SEQ, device="cuda",
+                                 **kw)
     steps = []
     for t in range(DECODE_T):
         lg, state = ad.decode(params, {"tokens": tokens[:, t:t + 1]}, state,
                               t)
         steps.append(lg[:, 0].float())
     return torch.stack(steps, 1)
+
+
+def prompt_tokens(torch, cfg):
+    """PREFILL_B x PREFILL_S prompt tokens from SEED, on the card."""
+    import numpy as np
+    return torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, cfg.vocab, (PREFILL_B, PREFILL_S))).to("cuda")
+
+
+def forward_phase(torch, cfg, params) -> dict:
+    """`cfg`'s forward on PREFILL_B x PREFILL_S prompt tokens with the
+    launch counters set to 0 just before and read just after, then timed
+    on the host clock. The prefill path is plain torch ops (the JAX
+    package has no prefill kernel), so it launches none of the port's
+    kernels. Keeps the logits of the first DECODE_T positions, in fp32."""
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    tokens = prompt_tokens(torch, cfg)
+    V = params["lm_head"].shape[1]
+    out = {"tokens": tokens}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        logits = ad.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["first_ms"] = (time.perf_counter() - t0) * 1e3
+        out["counts"] = {n: c.count for n, c in launch_counters().items()}
+        check(not any(out["counts"].values()),
+              f"{cfg.name} forward launched {out['counts']}, expected none")
+        check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
+              and bool(logits.isfinite().all()),
+              f"{cfg.name} forward logits {tuple(logits.shape)} not finite")
+        out["logits"] = logits[:, :DECODE_T].float()
+        del logits
+        t0 = time.perf_counter()
+        ad.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def decode_against_forward(torch, cfg, params, tokens, fwd_logits,
+                           cache_dtype=None) -> dict:
+    """The first DECODE_T tokens of `tokens` stepped through decode_step,
+    with the launch counters set to 0 just before and read just after
+    (both decode kernels every step), against forward's logits of those
+    positions: max abs difference and argmax agreement."""
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.models.registry import get_adapter
+    with torch.inference_mode():
+        reset_launch_counters()
+        dec = decode_logits(torch, get_adapter(cfg), params, tokens,
+                            cache_dtype)
+        counts = {n: c.count for n, c in launch_counters().items()}
+    check(counts == {n: k * DECODE_T for n, k in per_step(cfg).items()},
+          f"{cfg.name} decode against forward launched {counts}, expected "
+          f"{per_step(cfg)} per step")
+    ref = fwd_logits[:tokens.shape[0]]
+    return {"counts": counts,
+            "decode_diff": (dec - ref).abs().max().item(),
+            "max_logit": ref.abs().max().item(),
+            "decode_argmax": (dec.argmax(-1) == ref.argmax(-1)
+                              ).float().mean().item()}
+
+
+def dense_fp32_phase(torch, cfg, tokens) -> dict:
+    """`cfg` at full width in fp32, random weights from the same seed:
+    the first DECODE_T tokens of one prompt through decode_step, with an
+    fp32 KV cache, against forward's logits, within LOGITS_ATOL. In bf16
+    a random full-width model moves its logits by more than that under a
+    one-ulp change of its input (see rwkv_fp32_phase), and a bf16 cache
+    rounds K and V where forward does not."""
+    from repro_torch.models.registry import get_adapter
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(torch, cfg32)
+    tokens = tokens[:1, :DECODE_T]
+    with torch.inference_mode():
+        logits = get_adapter(cfg32).forward(params, {"tokens": tokens})
+    out = decode_against_forward(torch, cfg32, params, tokens,
+                                 logits.float(), torch.float32)
+    check(out["decode_diff"] <= LOGITS_ATOL,
+          f"{cfg.name} fp32 decode differs from forward by "
+          f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_phase(torch, cfg, params, requests_tokens) -> dict:
+    """Each layer of an MoE decode step at pos 8 (after 8 steps on the
+    kernel path) run on the same input through the kernel path and the
+    plain path. Held to 3e-2 of the layer output's largest magnitude (the
+    bound of rwkv_forward_phase) over the tokens that both paths route to
+    the same experts. The paths differ by rounding, which can move a gate
+    probability across a near tie; such a token then takes another expert
+    on one path, and its output differs by that expert's share. It is
+    counted and printed with its gap instead, and its gap must be one that
+    rounding explains (routing_flips). Reports the whole step's logits on
+    both paths, and how far a one-ulp input change moves them."""
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    cache, tok = fed_steps(torch, ad, params, requests_tokens, SLOTS,
+                           MAX_SEQ)
+    worst, flips = 0.0, []
+    with torch.inference_mode():
+        h = params["embed"][tok]
+        for i in range(cfg.n_layers):
+            bp = transformer._index(params["blocks"], i)
+            kc, vc = cache["k"][i], cache["v"][i]
+            kp, vp = kc.clone(), vc.clone()
+            rk, rp = [], []
+            with recorded_routing(rk):
+                hk = transformer.block_decode(cfg, h, bp, kc, vc, 8, 8)
+            with plain_path(), recorded_routing(rp):
+                hp = transformer.block_decode(cfg, h, bp, kp, vp, 8, 8)
+            layer_flips = [(i, t, gap, shift)
+                           for _, t, gap, shift in routing_flips(rk, rp)]
+            check(all(gap <= 2 * shift for *_, gap, shift in layer_flips),
+                  f"{cfg.name} layer {i}: routing differs between the "
+                  f"paths by more than rounding explains: {layer_flips}")
+            same = torch.ones(hk.shape[0], dtype=torch.bool, device="cuda")
+            same[[t for _, t, _, _ in layer_flips]] = False
+            err = (hk.float() - hp.float())[same].abs().max().item() \
+                if bool(same.any()) else 0.0
+            scale = hp.float().abs().max().item()
+            check(err <= 3e-2 * scale,
+                  f"{cfg.name} layer {i}: kernel and plain paths differ by "
+                  f"{err} on the same input (largest |output| {scale})")
+            worst = max(worst, err / scale)
+            flips += layer_flips
+            h = hk
+        # Reported only: the whole step on both paths, and on the plain
+        # path after a one-ulp change of every embedding value. Slot 8 of
+        # each cache copy is written anew before it is read.
+        bumped = dict(params, embed=(params["embed"].view(torch.int16) + 1)
+                      .view(torch.bfloat16))
+        runs = {}
+        for name, p, ctx in (("kernel", params, contextlib.nullcontext),
+                             ("plain", params, plain_path),
+                             ("plain, one ulp up", bumped, plain_path)):
+            calls = []
+            with ctx(), recorded_routing(calls):
+                lg, _ = ad.decode(p, {"tokens": tok},
+                                  {k: v.clone() for k, v in cache.items()},
+                                  8)
+            runs[name] = (lg.float(), calls)
+    print_flips(f"{cfg.name} bf16, each layer of the step at pos 8 on the "
+                f"same input", flips, SLOTS * cfg.n_layers)
+    (lk, rk), (lp, rp), (lu, ru) = runs.values()
+    out = {"layer_err": worst, "flips": len(flips),
+           "step_diff": (lk - lp).abs().max().item(),
+           "step_flips": len(routing_flips(rk, rp)),
+           "ulp_diff": (lu - lp).abs().max().item(),
+           "ulp_flips": len(routing_flips(ru, rp))}
+    print(f"[logits] {cfg.name} bf16 step at pos 8, reported only: max "
+          f"|kernel - plain| logits {out['step_diff']!r} (max |logit| "
+          f"{lp.abs().max().item()!r}), {out['step_flips']} of "
+          f"{SLOTS * cfg.n_layers} routing decisions differ; on the plain "
+          f"path a one-ulp change of every embedding value moves the "
+          f"logits by {out['ulp_diff']!r} and changes {out['ulp_flips']} "
+          f"routing decisions")
+    return out
+
+
+def cell_bounds(cfg, params) -> dict:
+    """Least device times (:func:`bound`) of a decode step at SLOTS slots
+    and of a forward on PREFILL_B x PREFILL_S tokens. Bytes: every weight
+    but the embedding, read once (a step of an MoE model streams every
+    expert: at SLOTS tokens each expert's capacity is top_k slots).
+    Operations: 2 per weight that a token uses (top_k of the experts) and
+    the causal attention's two products."""
+    ws = [t for k, v in params.items() if k != "embed"
+          for t in (_tensors(v) if isinstance(v, dict) else [v])]
+    n_w = sum(t.numel() for t in ws)
+    nbytes = sum(t.numel() * t.element_size() for t in ws)
+    if cfg.moe:
+        m = cfg.moe
+        n_w -= cfg.n_layers * (m.n_experts - m.top_k) * 3 * cfg.d_model \
+            * m.expert_d_ff
+    hd, s = cfg.resolved_head_dim, PREFILL_S
+    attn = 4 * PREFILL_B * cfg.n_heads * hd * s * (s + 1) // 2 * cfg.n_layers
+    step_ms, step_by = bound(nbytes, 2 * SLOTS * n_w, "bfloat16")
+    fwd_ms, fwd_by = bound(nbytes, 2 * PREFILL_B * s * n_w + attn,
+                           "bfloat16")
+    print(f"[bound] {cfg.name}: {nbytes} bytes of weights beside the "
+          f"embedding, {n_w} used per token; decode step at {SLOTS} slots "
+          f"{step_ms!r} ms ({step_by}); forward on {PREFILL_B} x {s} tokens, "
+          f"{2 * PREFILL_B * s * n_w + attn} operations, {fwd_ms!r} ms "
+          f"({fwd_by})")
+    return {"step_ms": step_ms, "forward_ms": fwd_ms}
+
+
+def plain_agreement(torch, cfg, params, sv) -> int:
+    """The same requests served on the plain path: the greedy tokens that
+    agree with the kernel path's, position by position."""
+    from repro_torch.launch.serve import make_requests, serve
+    with plain_path():
+        plain = serve(cfg, params, make_requests(N_REQ, PROMPT_LEN, MAX_NEW,
+                                                 cfg.vocab, SEED),
+                      SLOTS, MAX_SEQ, "cuda")
+    agree = sum(a == b for r in plain.batcher.completed
+                for a, b in zip(r.out_tokens, sv["tokens"][r.rid]))
+    print(f"[serve] {cfg.name} plain path: {agree}/{sv['generated']} greedy "
+          f"tokens agree with the kernel path, position by position")
+    return agree
 
 
 def rwkv_fp32_phase(torch, cfg, tokens) -> dict:
@@ -1142,7 +1519,6 @@ def rwkv_fp32_phase(torch, cfg, tokens) -> dict:
     any rounding: a one-ulp change of its embedding moves the plain path's
     own logits by far more than LOGITS_ATOL, so bf16 logits cannot tell a
     right kernel from a wrong one; in fp32 they can."""
-    import dataclasses
     from repro_torch.models.registry import get_adapter
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(torch, cfg32)
@@ -1174,22 +1550,32 @@ def rwkv_fp32_phase(torch, cfg, tokens) -> dict:
     return out
 
 
-def forward_breakdown(torch, cfg, params, tokens) -> dict:
-    """Device time of one rwkv6-3b forward from torch.profiler: the
-    rwkv_scan kernel, the torch.matmul products (the device time under
-    aten::matmul) and the rest."""
+def forward_breakdown(torch, cfg, params, tokens, kernel_parts=None,
+                      labels=()) -> dict:
+    """Device time of one forward from torch.profiler, by part
+    (:func:`op_split`): the port's kernels named in `kernel_parts`, the
+    functions of `labels` ((module, name, part) each, innermost first),
+    the torch.matmul products outside them, and the rest. Each part must
+    have taken device time."""
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
-    with torch.inference_mode():
+    kernel_parts = kernel_parts or {}
+    with torch.inference_mode(), labelled(*[(m, n) for m, n, _ in labels]):
         prof = profile_calls(lambda: ad.forward(params, {"tokens": tokens}),
                              1, cpu=True)
-    total = _device_us(prof) / 1e3
-    check(total > 0, "the profiler recorded no device time for forward")
-    scan = _device_us(prof, RS_KERNELS) / 1e3
-    mm = sum(e.device_time_total for e in prof.key_averages()
-             if e.key == "aten::matmul") / 1e3
-    return {"device_ms": total, "scan_ms": scan, "matmul_ms": mm,
-            "other_ms": total - scan - mm}
+    split = op_split(prof, 1, kernel_parts,
+                     {n: part for _, n, part in labels}, products=True)
+    check(all(t > 0 for t in split.values()),
+          f"{cfg.name} forward: a part took no device time: {split}")
+    return split
+
+
+def print_split(what: str, split: dict, host_ms: float) -> None:
+    parts = ", ".join(f"{p} {t!r}" for p, t in split.items()
+                      if p != "device")
+    print(f"[profile] {what} device time {split['device']!r} ms: {parts}; "
+          f"device idle share of the host time {host_ms!r} ms "
+          f"{1 - split['device'] / host_ms!r}")
 
 
 def time_works(works: dict) -> None:
@@ -1218,10 +1604,11 @@ def time_works(works: dict) -> None:
 
 
 def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
+    parts = "".join(f"{p} {t!r}, " for p, t in bd.get("parts", {}).items())
     print(f"[profile] {name} decode step device time {bd['device_ms']!r} "
           f"ms: rowstream_matmul {bd['rowstream_ms']!r} "
           f"({bd['rowstream_kernels']} device kernels per step), flash_decode "
-          f"{bd['flash_ms']!r}, "
+          f"{bd['flash_ms']!r}, {parts}"
           f"other torch kernels {bd['other_ms']!r}; device idle share at "
           f"the median step {1 - bd['device_ms'] / median_ms!r}")
 
@@ -1249,7 +1636,6 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.configs.registry_configs import ALL_ARCHS
     from repro_torch.kernels import build
-    from repro_torch.launch.serve import make_requests, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1303,32 +1689,48 @@ def main(argv=None) -> int:
     # launches from the host.
     qcfg = ALL_ARCHS["qwen2-7b"]
     params = init_params(torch, qcfg)
-    sv = serve_phase(torch, qcfg, params,
-                     {"flash_decode": qcfg.n_layers,
-                      "rowstream_matmul": 7 * qcfg.n_layers + 1,
-                      "rwkv_scan": 0})
+    cell_bounds(qcfg, params)
+    sv = serve_phase(torch, qcfg, params, per_step(qcfg))
     print_serve("qwen2-7b", sv)
-
     prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
                                         key=lambda r: r.rid)]
     logits_phase(torch, qcfg, params, prompts, SLOTS, MAX_SEQ)
-
-    # The same requests on the plain path: greedy tokens that agree.
-    with plain_path():
-        plain = serve(qcfg, params, make_requests(N_REQ, PROMPT_LEN, MAX_NEW,
-                                                  qcfg.vocab, SEED),
-                      SLOTS, MAX_SEQ, "cuda")
-    agree = sum(a == b for r in plain.batcher.completed
-                for a, b in zip(r.out_tokens, sv["tokens"][r.rid]))
-    print(f"[serve] plain path: {agree}/{sv['generated']} greedy tokens "
-          f"agree with the kernel path, position by position")
-
+    plain_agreement(torch, qcfg, params, sv)
     walls = {"flash_decode": timed_ms(
                  flash_work(torch, qcfg, SLOTS, MAX_SEQ)["kernel"], 20),
              "rowstream_matmul": timed_ms(
                  rowstream_work(torch, qwen_weights(qcfg, params),
                                 SLOTS)["kernel"], 5)}
-    del params, plain
+    qf = forward_phase(torch, qcfg, params)
+    print_forward("qwen2-7b", qf)
+    qd = decode_against_forward(torch, qcfg, params, qf["tokens"],
+                                qf.pop("logits"))
+    print_decode("qwen2-7b bf16 (bf16 cache), reported only", qd)
+    del params
+    torch.cuda.empty_cache()
+    qd32 = dense_fp32_phase(torch, qcfg, qf["tokens"])
+    print_decode("qwen2-7b fp32 (fp32 cache)", qd32)
+
+    gcfg = ALL_ARCHS[GRANITE]
+    params = init_params(torch, gcfg)
+    cell_bounds(gcfg, params)
+    gs = serve_phase(torch, gcfg, params, per_step(gcfg))
+    print_serve("granite-moe-3b", gs)
+    gprompts = [r.prompt for r in sorted(gs["run"].batcher.completed,
+                                         key=lambda r: r.rid)]
+    plain_agreement(torch, gcfg, params, gs)
+    gl = moe_layer_phase(torch, gcfg, params, gprompts)
+    print(f"[logits] granite-moe-3b bf16: each layer on the same input, "
+          f"kernel against plain path: max err / max |output| over tokens "
+          f"routed alike {gl['layer_err']!r} (tolerance 3e-2)")
+    gf = forward_phase(torch, gcfg, params)
+    print_forward("granite-moe-3b", gf)
+    del params, gf["logits"]
+    torch.cuda.empty_cache()
+    g32 = dataclasses.replace(gcfg, dtype="float32")
+    params = init_params(torch, g32)
+    logits_phase(torch, g32, params, gprompts, SLOTS, MAX_SEQ)
+    del params
     torch.cuda.empty_cache()
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
@@ -1354,10 +1756,7 @@ def main(argv=None) -> int:
           f"prompts through decode_step: max |decode - forward| logits "
           f"{fp['decode_diff']!r} (tolerance {LOGITS_ATOL}), argmax agrees "
           f"at {fp['decode_argmax']!r} of positions")
-    rs = serve_phase(torch, rcfg, params,
-                     {"flash_decode": 0,
-                      "rowstream_matmul": 10 * rcfg.n_layers + 1,
-                      "rwkv_scan": 0})
+    rs = serve_phase(torch, rcfg, params, per_step(rcfg))
     print_serve("rwkv6-3b", rs)
 
     works = {"rwkv_scan": scan_work(torch, pf.pop("launches")),
@@ -1368,18 +1767,20 @@ def main(argv=None) -> int:
     works["rowstream_matmul on rwkv6-3b"]["per"] = \
         f"one rwkv6-3b decode step at {SLOTS} slots"
     time_works(works)     # CUDA-event walls first, then the profiler
-    fb = forward_breakdown(torch, rcfg, params, pf["tokens"])
-    print(f"[profile] rwkv6-3b forward device time {fb['device_ms']!r} ms: "
-          f"rwkv_scan {fb['scan_ms']!r}, torch.matmul {fb['matmul_ms']!r}, "
-          f"other {fb['other_ms']!r}; device idle share of the host-timed "
-          f"forward {1 - fb['device_ms'] / pf['forward_ms']!r}")
-    rbd = step_breakdown(torch, rcfg, params, 10 * rcfg.n_layers + 1)
+    fb = forward_breakdown(torch, rcfg, params, pf["tokens"],
+                           {"rwkv_scan": RS_KERNELS})
+    print_split("rwkv6-3b forward", fb, pf["forward_ms"])
+    rbd = step_breakdown(torch, rcfg, params,
+                         per_step(rcfg)["rowstream_matmul"])
     print_breakdown("rwkv6-3b", rbd, rs["median_step_ms"])
     works = {name: numbers(w) for name, w in works.items()}
     del params, pf["tokens"]
     torch.cuda.empty_cache()
 
-    # qwen2-7b again, from the same seed, for its profiled part.
+    # qwen2-7b and granite again, from the same seed, for their profiled
+    # parts.
+    from repro_torch.models import layers, moe
+    attention = (layers, "attention_scores", "attention")
     params = init_params(torch, qcfg)
     qworks = {"flash_decode": flash_work(torch, qcfg, SLOTS, MAX_SEQ),
               "rowstream_matmul": rowstream_work(
@@ -1388,15 +1789,36 @@ def main(argv=None) -> int:
         w["wall_ms"] = walls[name]
         w["per"] = f"one qwen2-7b decode step at {SLOTS} slots"
     time_works(qworks)
-    qbd = step_breakdown(torch, qcfg, params, 7 * qcfg.n_layers + 1)
+    qbd = step_breakdown(torch, qcfg, params,
+                         per_step(qcfg)["rowstream_matmul"])
     print_breakdown("qwen2-7b", qbd, sv["median_step_ms"])
+    qfb = forward_breakdown(torch, qcfg, params, qf["tokens"],
+                            labels=[attention])
+    print_split("qwen2-7b forward", qfb, qf["forward_ms"])
     works.update((name, numbers(w)) for name, w in qworks.items())
     del params, qworks
+    torch.cuda.empty_cache()
+
+    params = init_params(torch, gcfg)
+    experts = (moe, "_experts", "experts")
+    gbd = step_breakdown(torch, gcfg, params,
+                         per_step(gcfg)["rowstream_matmul"],
+                         labels=[experts])
+    print_breakdown("granite-moe-3b", gbd, gs["median_step_ms"])
+    gfb = forward_breakdown(torch, gcfg, params, gf["tokens"], labels=[
+        experts, (moe, "moe_ffn", "routing, dispatch and combine"),
+        attention])
+    print_split("granite-moe-3b forward", gfb, gf["forward_ms"])
+    del params
     torch.cuda.empty_cache()
     long_fd = flash_phase(FD_LENGTHS[1:])
     check_rowstream_launches(torch, dev)
 
-    paths = {"qwen2-7b serve": sv["counts"], "rwkv6-3b forward": pf["counts"],
+    paths = {"qwen2-7b serve": sv["counts"],
+             "qwen2-7b forward": qf["counts"],
+             "granite-moe-3b serve": gs["counts"],
+             "granite-moe-3b forward": gf["counts"],
+             "rwkv6-3b forward": pf["counts"],
              "rwkv6-3b serve": rs["counts"]}
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
                 "rowstream_matmul":
@@ -1446,6 +1868,29 @@ def init_params(torch, cfg) -> dict:
     print(f"[init] {cfg.name} full width, {cfg.dtype}, {n_bytes / 1e9:.2f} GB of "
           f"weights in {time.perf_counter() - t0:.1f} s")
     return params
+
+
+def per_step(cfg) -> dict:
+    """Each kernel's launches in one decode step of `cfg`."""
+    rm = RM_PER_LAYER[cfg.name] * cfg.n_layers + 1
+    if cfg.family == "ssm":
+        return {"flash_decode": 0, "rowstream_matmul": rm, "rwkv_scan": 0}
+    return {"flash_decode": cfg.n_layers, "rowstream_matmul": rm,
+            "rwkv_scan": 0}
+
+
+def print_forward(name: str, f: dict) -> None:
+    print(f"[forward] {name} bf16, {PREFILL_B} x {PREFILL_S} tokens: "
+          f"launches {f['counts']}; host time {f['forward_ms']!r} ms (first "
+          f"call {f['first_ms']!r} ms)")
+
+
+def print_decode(what: str, d: dict) -> None:
+    print(f"[decode] {what}: {DECODE_T} tokens of each prompt through "
+          f"decode_step, launches {d['counts']}: max |decode - forward| "
+          f"logits {d['decode_diff']!r} (tolerance {LOGITS_ATOL}; max |logit| "
+          f"{d['max_logit']!r}), argmax agrees at {d['decode_argmax']!r} of "
+          f"positions")
 
 
 def print_serve(name: str, sv: dict) -> None:

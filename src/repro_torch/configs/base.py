@@ -2,11 +2,12 @@
 
 A subset of ``repro.configs.base``: the PyTorch port imports nothing of
 the JAX package, so it keeps its own copy of the fields its models read,
-and of the dense part of :func:`reduced`, so that both packages build the
-same shapes from the same config. The SSM family's rwkv6 reads no field
-beyond the dense ones (its head count is ``d_model // 64``), and the
-dense part of ``reduced`` is also the reference's reduced rwkv6. A slice
-that ports another family (MoE, hybrid, ...) adds that family's fields.
+and of the dense and MoE parts of :func:`reduced`, so that both packages
+build the same shapes from the same config. The SSM family's rwkv6 reads
+no field beyond the dense ones (its head count is ``d_model // 64``), and
+the dense part of ``reduced`` is also the reference's reduced rwkv6. A
+slice that ports another family (hybrid, vlm, audio) adds that family's
+fields.
 """
 from __future__ import annotations
 
@@ -16,9 +17,18 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+    # granite/phi both use a dense FFN nowhere; every block is MoE.
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense or ssm (the families ported)
+    family: str                   # dense, moe or ssm (those ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +41,7 @@ class ArchConfig:
     sliding_window: Optional[int] = None    # SWA (h2o-danube: 4096)
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
     # provenance
     source: str = ""
@@ -41,8 +52,9 @@ class ArchConfig:
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """A tiny same-family config for CPU smoke tests (the dense case of
-    the reference's ``reduced``: same shapes for the same config)."""
+    """A tiny same-family config for CPU smoke tests (the dense and MoE
+    cases of the reference's ``reduced``: same shapes for the same
+    config)."""
     base = dict(
         n_layers=2,
         d_model=64,
@@ -52,6 +64,10 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab=256,
         head_dim=16,
     )
+    if cfg.moe:
+        base["moe"] = MoEConfig(n_experts=min(cfg.moe.n_experts, 8),
+                                top_k=min(cfg.moe.top_k, 2),
+                                expert_d_ff=64)
     if cfg.sliding_window:
         base["sliding_window"] = 32
     base.update(overrides)

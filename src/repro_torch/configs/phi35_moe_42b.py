@@ -1,0 +1,14 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2
+[hf:microsoft/Phi-3.5-MoE-instruct; hf].
+
+About 42 B parameters, 84 GB in bf16: more than one 80 GB H100 holds, and
+the port has no sharding yet, so it runs only ``reduced``, on the CPU."""
+from .base import ArchConfig, MoEConfig
+
+CONFIG = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=6400, vocab=32064, head_dim=128,
+    moe=MoEConfig(n_experts=16, top_k=2, expert_d_ff=6400),
+    source="hf:microsoft/Phi-3.5-MoE-instruct; hf",
+)

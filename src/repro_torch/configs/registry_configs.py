@@ -1,7 +1,8 @@
-"""Arch-id -> ArchConfig registry of the port: the dense configs whose
-decode step needs nothing beyond ``models/transformer.decode_step``, and
-the SSM config run by ``models/rwkv6``."""
-from . import h2o_danube_1_8b, minitron_8b, qwen2_7b, qwen3_14b, rwkv6_3b
+"""Arch-id -> ArchConfig registry of the port: the dense and MoE configs
+run by ``models/transformer``, and the SSM config run by
+``models/rwkv6``."""
+from . import (granite_moe_3b, h2o_danube_1_8b, minitron_8b, phi35_moe_42b,
+               qwen2_7b, qwen3_14b, rwkv6_3b)
 
 ALL_ARCHS = {
     "qwen2-7b": qwen2_7b.CONFIG,
@@ -9,6 +10,8 @@ ALL_ARCHS = {
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
     "rwkv6-3b": rwkv6_3b.CONFIG,
+    "granite-moe-3b-a800m": granite_moe_3b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
 }
 
 

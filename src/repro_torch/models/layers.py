@@ -1,11 +1,15 @@
-"""Shared model layers of the decode path: norms, rotary embeddings, GQA
-projection, cached decode attention, SwiGLU and the dense initializer.
+"""Shared model layers: norms, rotary embeddings, masks, GQA projection,
+full-sequence and cached decode attention, SwiGLU and the dense
+initializer.
 
 The PyTorch counterpart of ``repro.models.layers``, function for function,
-with the same cast order so that bf16 rounds at the same places. Every
-weight product goes through the row-stream matmul kernel and the cached
-attention through the flash-decode kernel; their wrappers launch the CUDA
-kernels for CUDA tensors and run the plain versions for CPU tensors.
+with the same cast order so that bf16 rounds at the same places. At decode
+every weight product goes through the row-stream matmul kernel and the
+cached attention through the flash-decode kernel; their wrappers launch
+the CUDA kernels for CUDA tensors and run the plain versions for CPU
+tensors. The JAX package has no prefill kernel, so the full-sequence path
+(``self_attention``) is plain torch ops: the products take ``mm``,
+``torch.matmul`` over all rows of a prompt.
 """
 from __future__ import annotations
 
@@ -67,17 +71,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+
+def causal_mask(q_len: int, kv_len: int, sliding_window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(q_len, kv_len) boolean mask, True = attend. Supports SWA."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + (kv_len - q_len)
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    m = kv_pos <= q_pos
+    if sliding_window is not None:
+        m &= kv_pos > q_pos - sliding_window
+    return m
+
+
+# ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
-def gqa_project(params: dict, x: torch.Tensor, cfg) -> tuple:
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(b, h_kv, s, d) -> (b, h_kv*n_rep, s, d)."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (b, h, sq, d), k/v: (b, h, skv, d) -> (b, h, sq, d).
+
+    The logits in fp32 (JAX's ``preferred_element_type``: a bf16 product
+    is exact in fp32), masked with fp32's lowest value, softmax in fp32,
+    then the probabilities cast to v's dtype before the second product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def gqa_project(params: dict, x: torch.Tensor, cfg, mm=matmul) -> tuple:
     """Project hidden states to q/k/v heads: returns (q, k, v) shaped
-    (b, h, s, hd) / (b, h_kv, s, hd)."""
+    (b, h, s, hd) / (b, h_kv, s, hd). `mm` is the product."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = matmul(x, params["wq"])
-    k = matmul(x, params["wk"])
-    v = matmul(x, params["wv"])
+    q = mm(x, params["wq"])
+    k = mm(x, params["wk"])
+    v = mm(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -91,6 +133,81 @@ def gqa_project(params: dict, x: torch.Tensor, cfg) -> tuple:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+# Above this sequence length the full (s x s) fp32 logits of one layer
+# outgrow device memory; switch to the chunked online-softmax evaluation
+# (memory O(q_chunk * kv_chunk) per head instead of O(s^2), same result).
+CHUNKED_ATTN_THRESHOLD = 8192
+Q_CHUNK = 2048
+KV_CHUNK = 2048
+NEG_INF_F32 = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sliding_window: Optional[int] = None,
+                      q_chunk: int = Q_CHUNK,
+                      kv_chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Causal attention via online softmax over KV blocks, one query block
+    at a time. q/k/v: (b, h, s, d) -> (b, h, s, d). Every query block
+    visits every KV block, masked ones included, as the reference's scan
+    does."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    nq = -(-s // q_chunk)
+    nkv = -(-s // kv_chunk)
+    qp = F.pad(q, (0, 0, 0, nq * q_chunk - s))
+    kp = F.pad(k, (0, 0, 0, nkv * kv_chunk - s))
+    vp = F.pad(v, (0, 0, 0, nkv * kv_chunk - s))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qblk = qp[:, :, qi * q_chunk:(qi + 1) * q_chunk].float()
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, h, q_chunk), NEG_INF_F32, device=dev)
+        l = torch.zeros((b, h, q_chunk), device=dev)
+        acc = torch.zeros((b, h, q_chunk, d), device=dev)
+        for j in range(nkv):
+            kj = kp[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            vj = vp[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            kv_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            logits = torch.einsum("bhqd,bhkd->bhqk", qblk, kj.float()) * scale
+            mask = kv_pos[None, :] <= q_pos[:, None]
+            if sliding_window is not None:
+                mask &= kv_pos[None, :] > q_pos[:, None] - sliding_window
+            mask &= (kv_pos < s)[None, :]
+            logits = torch.where(mask, logits, NEG_INF_F32)
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] \
+                + torch.einsum("bhqk,bhkd->bhqd", p.to(vj.dtype), vj)
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)[:, :, :s]
+
+
+def self_attention(params: dict, x: torch.Tensor, cfg,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal GQA self-attention (prefill path), products
+    through torch.matmul. Long sequences use the chunked online-softmax
+    path (same math, bounded memory). The reference's optional mask, which
+    no caller passes, is left out."""
+    b, s, _ = x.shape
+    mm = torch.matmul
+    q, k, v = gqa_project(params, x, cfg, mm)
+    q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    n_rep = q.shape[1] // k.shape[1]
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    if s >= CHUNKED_ATTN_THRESHOLD:
+        out = chunked_attention(q, k, v, cfg.sliding_window)
+    else:
+        out = attention_scores(q, k, v, causal_mask(s, s, cfg.sliding_window,
+                                                    x.device))
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return mm(out, params["wo"])
 
 
 def _cached_attention_local(q, k_new, v_new, kc, vc, pos: int,
@@ -135,9 +252,10 @@ def decode_attention(params: dict, x: torch.Tensor, cfg,
 # FFN
 # ---------------------------------------------------------------------------
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return matmul(F.silu(matmul(x, params["w_gate"]))
-                  * matmul(x, params["w_up"]), params["w_down"])
+def swiglu(params: dict, x: torch.Tensor, mm=matmul) -> torch.Tensor:
+    """SwiGLU FFN; `mm` is the product."""
+    return mm(F.silu(mm(x, params["w_gate"])) * mm(x, params["w_up"]),
+              params["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Arch registry: the dense and SSM subset of ``repro.models.registry``.
+"""Arch registry: the dense, MoE and SSM subset of
+``repro.models.registry``.
 
     adapter = get_adapter("rwkv6-3b")
     params  = adapter.init(torch.Generator("cuda").manual_seed(0))
@@ -6,11 +7,11 @@
     state   = adapter.init_decode_state(batch, max_seq, device="cuda")
     logits, state = adapter.decode(params, {"tokens": tokens}, state, pos)
 
-``pos`` is a host int. The dense family (``models/transformer``) has
-``decode`` but no ``forward`` yet; the SSM family (``models/rwkv6``) has
-both, and its decode state ignores ``max_seq`` and ``dtype`` (as the
-reference's does: the state's dtypes are fixed). The other families (and
-``loss``) wait for their slices.
+``pos`` is a host int. The dense and MoE families share
+``models/transformer``, as in the reference; the SSM family runs
+``models/rwkv6``, whose decode state ignores ``max_seq`` and ``dtype`` (as
+the reference's does: the state's dtypes are fixed). The other families
+(and ``loss``) wait for their slices.
 """
 from __future__ import annotations
 
@@ -24,9 +25,7 @@ from . import rwkv6, transformer
 
 
 def _tfm_forward(params, cfg, batch):
-    raise NotImplementedError(
-        f"{cfg.name}: the dense family's forward (prefill/train) is not "
-        f"ported yet (ROADMAP.md Queue 1 item 3)")
+    return transformer.forward(params, cfg, batch["tokens"])
 
 
 def _tfm_decode(params, cfg, batch, state, pos):
@@ -45,9 +44,12 @@ def _rwkv_init_state(cfg, batch, max_seq, dtype, device):
     return rwkv6.init_state(cfg, batch, device)
 
 
+_TRANSFORMER = dict(init=transformer.init, forward=_tfm_forward,
+                    decode=_tfm_decode, init_state=transformer.init_cache)
+
 _FAMILY = {
-    "dense": dict(init=transformer.init, forward=_tfm_forward,
-                  decode=_tfm_decode, init_state=transformer.init_cache),
+    "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
     "ssm": dict(init=rwkv6.init, forward=_rwkv_forward, decode=_rwkv_decode,
                 init_state=_rwkv_init_state),
 }

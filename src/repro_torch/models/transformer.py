@@ -1,18 +1,23 @@
-"""Dense decoder-only transformer LM: init, KV cache and the single-token
-decode step (qwen2, qwen3, minitron, h2o-danube).
+"""Dense / MoE decoder-only transformer LM (qwen2, minitron, h2o-danube,
+qwen3, granite-moe, phi3.5-moe): init, the full-sequence ``forward``
+(prefill), the KV cache and the single-token decode step.
 
 The PyTorch counterpart of ``repro.models.transformer``. Parameters are a
 dict of tensors with the reference's structure: the per-layer ``blocks``
-leaves are stacked along a leading layer dim. The full-sequence ``forward``
-(train / prefill) is not ported yet.
+leaves are stacked along a leading layer dim. ``forward`` runs its
+products through torch.matmul (the JAX package has no prefill kernel);
+``decode_step`` runs its weight products through the row-stream kernel
+and its attention through the flash-decode kernel. The reference's
+``remat`` option of ``forward`` waits for the training slice.
 """
 from __future__ import annotations
 
 import torch
 
 from ..distributed.sharding import padded_vocab
+from . import moe as moe_lib
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
-                     matmul, rmsnorm, swiglu)
+                     matmul, rmsnorm, self_attention, swiglu)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,12 +49,16 @@ def init(cfg, gen: torch.Generator) -> dict:
     V = padded_vocab(cfg.vocab)
 
     def block_init():
-        return {
+        p = {
             "attn": attn_params(gen, cfg, cfg.n_heads, cfg.n_kv_heads, dt),
             "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "ffn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "ffn": ffn_params(gen, cfg.d_model, cfg.d_ff, dt),
         }
+        if cfg.moe:
+            p["moe"] = moe_lib.moe_params(gen, cfg, dt)
+        else:
+            p["ffn"] = ffn_params(gen, cfg.d_model, cfg.d_ff, dt)
+        return p
 
     params = {
         "embed": dense_init(gen, (V, cfg.d_model), dt, scale=0.02),
@@ -58,6 +67,35 @@ def init(cfg, gen: torch.Generator) -> dict:
         "lm_head": dense_init(gen, (cfg.d_model, V), dt),
     }
     return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _block_forward(cfg, h: torch.Tensor, bp: dict,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = h + self_attention(bp["attn"], rmsnorm(h, bp["attn_norm"],
+                                               cfg.norm_eps), cfg, positions)
+    x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
+    if cfg.moe:
+        f = moe_lib.moe_ffn(bp["moe"], x, cfg, mm=torch.matmul)
+    else:
+        f = swiglu(bp["ffn"], x, torch.matmul)
+    return h + f
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (b, s) int -> logits (b, s, V_padded)."""
+    b, s = tokens.shape
+    h = params["embed"][tokens]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    blocks = params["blocks"]
+    for i in range(blocks["attn_norm"].shape[0]):
+        h = _block_forward(cfg, h, _index(blocks, i), positions)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return torch.matmul(h, params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +114,18 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def block_decode(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
+                 vc: torch.Tensor, pos: int, slot: int) -> torch.Tensor:
+    """One layer of the decode step: h (b, 1, d) -> (b, 1, d); writes the
+    new token's K/V into this layer's caches kc/vc at `slot`."""
+    x = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
+    h = h + decode_attention(bp["attn"], x, cfg, kc, vc, pos, slot)
+    x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
+    f = moe_lib.moe_ffn(bp["moe"], x, cfg) if cfg.moe \
+        else swiglu(bp["ffn"], x)
+    return h + f
+
+
 def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
                 pos: int) -> tuple:
     """token: (b, 1) int; pos: host int. Returns (logits (b, 1, V_padded),
@@ -90,13 +140,8 @@ def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
     slot = pos % S if cfg.sliding_window else pos
     blocks = params["blocks"]
     for i in range(L):
-        bp = _index(blocks, i)
-        x = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
-        a = decode_attention(bp["attn"], x, cfg, cache["k"][i],
-                             cache["v"][i], pos, slot)
-        h = h + a
-        x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
-        h = h + swiglu(bp["ffn"], x)
+        h = block_decode(cfg, h, _index(blocks, i), cache["k"][i],
+                         cache["v"][i], pos, slot)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return matmul(h, params["lm_head"]), cache
 

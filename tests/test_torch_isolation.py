@@ -45,12 +45,30 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def test_every_port_module_is_scanned():
+    """The scan above globs the package: the modules of each slice are in
+    it, the MoE family's and the prefill path's included."""
+    names = {str(p.relative_to(REPO / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"models/moe.py", "models/transformer.py", "models/layers.py",
+            "models/rwkv6.py", "configs/granite_moe_3b.py",
+            "configs/phi35_moe_42b.py", "launch/serve.py"} <= names
+    assert REPO / "chip_smoke.py" in PORT_FILES
+
+
 def test_serve_driver_on_cpu_loads_no_jax_or_repro():
     code = (
         "import sys\n"
+        "import torch\n"
         "from repro_torch.launch import serve\n"
-        "assert serve.main(['--reduced', '--device', 'cpu', '--requests',"
-        " '2', '--slots', '2', '--max-new', '2']) == 0\n"
+        "from repro_torch.configs import ALL_ARCHS, reduced\n"
+        "from repro_torch.models.registry import get_adapter\n"
+        "for arch in ('qwen2-7b', 'granite-moe-3b-a800m'):\n"
+        "    assert serve.main(['--arch', arch, '--reduced', '--device',"
+        " 'cpu', '--requests', '2', '--slots', '2', '--max-new', '2']) == 0\n"
+        "    ad = get_adapter(reduced(ALL_ARCHS[arch]))\n"
+        "    p = ad.init(torch.Generator().manual_seed(0))\n"
+        "    ad.forward(p, {'tokens': torch.ones((1, 4), dtype=torch.int64)})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -267,12 +267,6 @@ def test_init_matches_jax_structure_and_scales(dtype):
     assert tp["blocks"]["u"].shape == (cfg.n_layers, 2, 64)
 
 
-def test_adapter_forward_dense_is_not_ported():
-    cfg = reduced(ALL_ARCHS["qwen2-7b"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        get_adapter(cfg).forward({}, {"tokens": torch.zeros((1, 2))})
-
-
 def test_ssm_decode_state_ignores_max_seq():
     cfg = reduced(ALL_ARCHS["rwkv6-3b"])
     ad = get_adapter(cfg)

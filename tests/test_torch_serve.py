@@ -1,7 +1,8 @@
 """The slices as a whole: the port's serve loop, on the reference's
 parameters moved across by the bridge, emits exactly the greedy tokens of
-``repro.launch.serve.main`` for reduced qwen2-7b (KV cache) and reduced
-rwkv6-3b (recurrent state) in fp32."""
+``repro.launch.serve.main`` for reduced qwen2-7b (KV cache), reduced
+granite-moe-3b (KV cache, MoE FFN) and reduced rwkv6-3b (recurrent state)
+in fp32."""
 import jax
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ from repro_torch.launch import serve as port_serve
 ARGV = ["--reduced", "--requests", "4", "--slots", "2", "--max-new", "8"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-3b",
+                                  "granite-moe-3b-a800m"])
 def test_serve_tokens_match_jax_driver(monkeypatch, arch):
     batchers = []
 
