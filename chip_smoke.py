@@ -35,6 +35,20 @@ GPU, from the root of a checkout:
      whole step in fp32, with the (token, layer) routing decisions that
      differ between the paths printed with their gate-probability gaps;
      then ``forward`` on 4 x 1024 tokens.
+   * zamba2-1.2b (38 Mamba2 blocks, one shared attention + SwiGLU block
+     after every sixth) served as qwen2-7b: 119 rowstream_matmul launches
+     a step (in_proj and out_proj of each block, seven per application of
+     the shared block, the head) and 6 flash_decode (the shared block's
+     attention); the greedy tokens against the plain path's; each Mamba2
+     block and the shared block at each depth held against the plain path
+     on the same input in bf16; ``forward`` on 4 x 1024 tokens (plain
+     torch ops, the SSD recurrence token by token as in the reference);
+     in fp32 one step against the plain path and 64 tokens through
+     ``decode_step`` against ``forward``. Then the row-paged KV cache
+     (``serve/kv_cache.py``) on the card: 4 interleaved sequences of 4096
+     tokens of one qwen2-7b layer written token by token, each gathered
+     bit for bit against a CPU copy and attended by flash_decode against
+     its plain version.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -45,12 +59,14 @@ GPU, from the root of a checkout:
    kernel's launches of one decode step (flash_decode, rowstream_matmul)
    or one forward (rwkv_scan): the kernel's wall time on the device's clock
    from CUDA events, then device times from torch.profiler, and profiled
-   splits of each forward and of a decode step of each model; each
+   splits of each forward and of a decode step of each model (zamba2's
+   by SSD scan, conv, shared attention and products), zamba2's products
+   one line per shape; each
    profiled window must hold as many device kernels per call as a
    profiled single call, or the run fails. All host-clock and CUDA-event
-   timings come before the first use of the profiler, so the qwen2-7b and
-   granite weights are made again from the same seed for their profiled
-   parts. Then
+   timings come before the first use of the profiler, so the qwen2-7b,
+   granite and zamba2 weights are made again from the same seed for their
+   profiled parts. Then
    flash_decode shows one device kernel and one allocation (the output)
    per call, and is timed at long context: 28 layers' caches of S 4096
    and 32768 slots, pos S - 1. Each profiled decode step must run one
@@ -68,7 +84,9 @@ torch.matmul and byte-bound time per launch, the plan's blocks, splits and
 workspace) and each step's totals. ``--only rwkv_scan``: its build, its
 checks, then the 32 launches of one rwkv6-3b forward at full width, each
 on its own inputs synthesised from a seed with rwkv6's decays (wall and
-device time, plain time, bound) and the kernel's plan. ``--baseline``
+device time, plain time, bound) and the kernel's plan. ``--only zamba2``
+builds and checks all three kernels, then runs only zamba2's phases and
+the paged pool, profiled parts included (no ``ok`` line). ``--baseline``
 runs either on a tree whose kernel predates its redesign (copy this
 script into that tree's root): it leaves out the checks and plan that the
 redesign added and times the old kernel's device kernels (for rwkv_scan
@@ -139,10 +157,21 @@ RM_SLICE = 256
 SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
 PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
 GRANITE = "granite-moe-3b-a800m"
+ZAMBA = "zamba2-1.2b"
 # rowstream_matmul launches per layer of a decode step: qwen2-7b's seven
 # products, rwkv6-3b's ten, granite's q, k, v, o and router (its expert
-# products are torch.einsum, as in the reference); plus one for the head.
-RM_PER_LAYER = {"qwen2-7b": 7, "rwkv6-3b": 10, GRANITE: 5}
+# products are torch.einsum, as in the reference), zamba2's in_proj and
+# out_proj (plus seven for each application of its shared block: q, k, v,
+# o and the three FFN products); plus one for the head.
+RM_PER_LAYER = {"qwen2-7b": 7, "rwkv6-3b": 10, GRANITE: 5, ZAMBA: 2}
+# zamba2's shared block has a dense layer's seven products.
+SHARED_PRODUCTS = QWEN_PRODUCTS
+# The paged-pool phase: qwen2-7b's layer geometry (4 KV heads of 128 in
+# bf16, 4 tokens per 4 KB row), pages of 16 rows, 4 sequences of 4096
+# tokens appended in alternating chunks of POOL_CHUNK tokens, so that the
+# sequences' pages interleave in the pool and chunks straddle pages.
+POOL_KV, POOL_HD, POOL_HEADS, POOL_ROWS = 4, 128, 28, 16
+POOL_SEQS, POOL_S, POOL_CHUNK = 4, 4096, 96
 # Names of the torch.profiler ranges that `labelled` opens; left out of
 # every device-kernel count and time, like the pads.
 LABEL = "smoke::"
@@ -279,9 +308,14 @@ def device_ms(fn, reps: int, names=None) -> float:
     return us / reps / 1e3
 
 
-def bound(bytes_moved: float, ops: float, dtype: str) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, dtype: str,
+          fp32_ops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) of work moving `bytes_moved` bytes with `ops`
+    operations in `dtype` and `fp32_ops` more in fp32 outside the tensor
+    cores, and which of the two bounds it."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = (ops / PEAK_OPS_PER_S[dtype]
+             + fp32_ops / PEAK_OPS_PER_S["float32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -398,8 +432,9 @@ def print_flips(what: str, flips: list, decisions: int) -> None:
 def plain_path():
     """Route the model's products and attention to the plain versions for
     the duration (a comparison only; the port itself never does this).
-    models/moe.py takes its router product from ``layers.matmul``, so the
-    patched ``layers.rowstream_matmul`` covers it too."""
+    models/moe.py takes its router product from ``layers.matmul``, and
+    models/zamba2.py every product of its decode step, so the patched
+    ``layers.rowstream_matmul`` covers them too."""
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.rowstream_matmul.ref import rowstream_matmul_ref
     from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
@@ -797,7 +832,7 @@ def rowstream_work(torch, ws: list, slots: int) -> dict:
     ops = sum(2 * x.shape[0] * w.numel() for x, w in pairs)
     bound_ms, bound_by = bound(nbytes, ops, "bfloat16")
     return {"launches_per_step": len(pairs), "names": RM_KERNELS,
-            "reps": 5, "kernel": run(rowstream_matmul),
+            "reps": 5, "bytes": nbytes, "kernel": run(rowstream_matmul),
             "plain": run(rowstream_matmul_ref), "library": run(torch.matmul),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -814,6 +849,30 @@ def rwkv_weights(cfg, params) -> list:
     blocks = params["blocks"]
     return [blocks[w][i] for i in range(cfg.n_layers)
             for w in RWKV_PRODUCTS] + [params["lm_head"]]
+
+
+def granite_weights(cfg, params) -> list:
+    """granite-moe-3b's 161 decode products: q, k, v, o and the router
+    per layer, and the head (the expert products are torch.einsum)."""
+    blocks = params["blocks"]
+    return [blocks[a][w][i] for i in range(cfg.n_layers)
+            for a, w in QWEN_PRODUCTS[:4] + [("moe", "router")]] \
+        + [params["lm_head"]]
+
+
+def zamba_weights(cfg, params) -> list:
+    """zamba2-1.2b's 119 decode products in step order: in_proj and
+    out_proj of each Mamba2 block, the shared block's seven after every
+    k-th block (the same tensors at each application), and the head."""
+    from repro_torch.models import zamba2
+    k, n_shared = zamba2._pattern(cfg)
+    blocks, sp = params["blocks"], params["shared"]
+    out = []
+    for i in range(cfg.n_layers):
+        out += [blocks["in_proj"][i], blocks["out_proj"][i]]
+        if i < n_shared * k and (i + 1) % k == 0:
+            out += [sp[a][w] for a, w in SHARED_PRODUCTS]
+    return out + [params["lm_head"]]
 
 
 def rwkv_scan_ops(b: int, s: int, H: int, hd: int, C: int) -> float:
@@ -1468,32 +1527,223 @@ def moe_layer_phase(torch, cfg, params, requests_tokens) -> dict:
     return out
 
 
+def zamba2_layer_phase(torch, cfg, params, requests_tokens) -> dict:
+    """One decode step at pos 8 (after 8 steps on the kernel path) of each
+    Mamba2 block and of the shared block at each of its depths, run on the
+    same input and state through the kernel path and the plain path. Each
+    output, and each block's new SSM state, is held to 3e-2 of its largest
+    magnitude (the bound of rwkv_forward_phase): a random full-width bf16
+    model moves its whole-model logits by more than any useful bound under
+    a one-ulp change (PERF.md), so bf16 is held block by block."""
+    from repro_torch.models import zamba2
+    from repro_torch.models.registry import get_adapter
+    state, tok = fed_steps(torch, get_adapter(cfg), params, requests_tokens,
+                           SLOTS, MAX_SEQ)
+    k, n_shared = zamba2._pattern(cfg)
+    sp = params["shared"]
+    worst = {"mamba": 0.0, "mamba state": 0.0, "shared": 0.0}
+
+    def held(what, i, got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(err <= 3e-2 * scale,
+              f"zamba2 {what} {i}: kernel and plain paths differ by {err} "
+              f"on the same input (largest |output| {scale})")
+        worst[what] = max(worst[what], err / scale)
+
+    with torch.inference_mode():
+        h = params["embed"][tok][:, 0]
+        for i in range(cfg.n_layers):
+            bp = zamba2._index(params["blocks"], i)
+            ks, ps = ([state[n][i].clone() for n in ("ssm", "conv")]
+                      for _ in range(2))
+            hk = zamba2._mamba_block_step(bp, cfg, h, *ks)
+            with plain_path():
+                hp = zamba2._mamba_block_step(bp, cfg, h, *ps)
+            held("mamba", i, hk, hp)
+            held("mamba state", i, ks[0], ps[0])
+            h = hk
+            if i < n_shared * k and (i + 1) % k == 0:
+                u = i // k
+                kk, pp = ([state[n][u].clone() for n in ("k", "v")]
+                          for _ in range(2))
+                hk = zamba2._shared_block_step(sp, cfg, h, *kk, 8, 8)
+                with plain_path():
+                    hp = zamba2._shared_block_step(sp, cfg, h, *pp, 8, 8)
+                held("shared", u, hk, hp)
+                h = hk
+    print(f"[logits] zamba2-1.2b bf16: each block of the step at pos 8 on "
+          f"the same input, kernel against plain path, max err / max "
+          f"|output|: {worst!r} (tolerance 3e-2; {cfg.n_layers} Mamba2 "
+          f"blocks, the shared block at {n_shared} depths)")
+    return worst
+
+
+def zamba2_fp32_phase(torch, cfg, prompts, tokens) -> dict:
+    """zamba2 at full width in fp32, random weights from the same seed:
+    one decode step at pos 8 on the kernel path against the plain path
+    (logits_phase), and the first DECODE_T tokens of the PREFILL_B prompts
+    stepped through decode_step, with an fp32 KV cache, against forward's
+    logits; both within LOGITS_ATOL."""
+    from repro_torch.models.registry import get_adapter
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(torch, cfg32)
+    out = {"step_diff": logits_phase(torch, cfg32, params, prompts, SLOTS,
+                                     MAX_SEQ)}
+    tokens = tokens[:, :DECODE_T]
+    with torch.inference_mode():
+        logits = get_adapter(cfg32).forward(params, {"tokens": tokens})
+    out.update(decode_against_forward(torch, cfg32, params, tokens,
+                                      logits.float(), torch.float32))
+    check(out["decode_diff"] <= LOGITS_ATOL,
+          f"{cfg.name} fp32 decode differs from forward by "
+          f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_pool_phase(torch) -> dict:
+    """The port's RowPagedKVCache on the card: POOL_SEQS sequences of POOL_S
+    tokens of one qwen2-7b layer, pages of POOL_ROWS 4 KB rows, appended in
+    alternating chunks so that their pages interleave; every token written
+    with ``write``; each sequence gathered with ``gather_seq`` and held bit
+    for bit against a CPU copy of the same cache, then attended by
+    flash_decode as (1, POOL_KV, POOL_S, POOL_HD) against its plain version
+    at the bf16 check's tolerance (flash_verdict). The gather is timed."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.serve.kv_cache import RowPagedKVCache, tokens_per_row
+    pt = tokens_per_row(POOL_HD, POOL_KV, 2, POOL_ROWS)
+    per_seq = POOL_S // pt
+    kw = dict(n_pages=POOL_SEQS * per_seq, page_tokens=pt,
+              n_kv_heads=POOL_KV, head_dim=POOL_HD, max_seqs=POOL_SEQS,
+              max_pages_per_seq=per_seq)
+    dev_cache, cpu_cache = RowPagedKVCache(**kw), RowPagedKVCache(
+        **kw, device="cpu")
+    check(dev_cache.pool_k.is_cuda and dev_cache.rows_per_page() == POOL_ROWS,
+          f"paged pool: {dev_cache.pool_k.device}, "
+          f"{dev_cache.rows_per_page()} rows a page")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    kv = torch.randn((2, POOL_SEQS, POOL_S, POOL_KV, POOL_HD), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    kv_cpu = kv.cpu()
+    for c in (dev_cache, cpu_cache):
+        for sid in range(POOL_SEQS):
+            c.alloc_seq(sid, 0)
+        while any(c.seq_lens < POOL_S):
+            for sid in range(POOL_SEQS):
+                c.append_chunk(sid, min(POOL_CHUNK,
+                                        POOL_S - int(c.seq_lens[sid])))
+    row = [int(p) for p in dev_cache.page_table[0]]
+    check(bool((dev_cache.page_table == cpu_cache.page_table).all())
+          and any(b - a != 1 for a, b in zip(row, row[1:]))
+          and dev_cache.free_pages == 0,
+          f"paged pool: page tables differ or pages do not interleave "
+          f"(sequence 0: {row})")
+    t0 = time.perf_counter()
+    for c, vals in ((dev_cache, kv), (cpu_cache, kv_cpu)):
+        for sid in range(POOL_SEQS):
+            for t in range(POOL_S):
+                pg, slot = divmod(t, pt)
+                c.write(int(c.page_table[sid, pg]), slot, vals[0, sid, t],
+                        vals[1, sid, t])
+        if c is dev_cache:
+            torch.cuda.synchronize()
+            write_s = time.perf_counter() - t0
+    worst = 0.0
+    q = torch.randn((1, POOL_HEADS, POOL_HD), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for sid in range(POOL_SEQS):
+        k, v = dev_cache.gather_seq(sid)
+        kc, vc = cpu_cache.gather_seq(sid)
+        check(torch.equal(k.cpu(), kc) and torch.equal(v.cpu(), vc)
+              and torch.equal(kc, kv_cpu[0, sid])
+              and tuple(k.shape) == (POOL_S, POOL_KV, POOL_HD),
+              f"paged pool: sequence {sid} gathers other bits on the card "
+              f"than on the CPU or than were written")
+        kh, vh = (x.permute(1, 0, 2)[None].contiguous() for x in (k, v))
+        out = flash_decode(q, kh, vh, POOL_S - 1)
+        torch.cuda.synchronize()
+        elementwise, scaled, err, scale = flash_verdict(
+            torch, out, flash_decode_ref(q, kh, vh, POOL_S - 1))
+        check(elementwise and scaled,
+              f"paged pool: flash_decode over sequence {sid} differs from "
+              f"its plain version by {err} (max |ref| {scale})")
+        worst = max(worst, err)
+    gather_ms = timed_ms(lambda: dev_cache.gather_seq(0), 50)
+    nbytes = 2 * 2 * POOL_S * POOL_KV * POOL_HD * 2
+    out = {"gather_ms": gather_ms, "gather_bound_ms": bound(
+        nbytes, 0, "bfloat16")[0], "write_s": write_s,
+        "flash_max_abs_err": worst, "pages": dev_cache.n_pages,
+        "page_tokens": pt}
+    print(f"[pool] RowPagedKVCache on {dev_cache.device}: {POOL_SEQS} "
+          f"sequences of {POOL_S} tokens, {dev_cache.n_pages} pages of {pt} "
+          f"tokens ({POOL_ROWS} rows), interleaved; {POOL_SEQS * POOL_S} "
+          f"writes in {write_s!r} s; gather_seq bit for bit against the CPU "
+          f"copy; flash_decode over each gathered sequence against its plain "
+          f"version, max abs err {worst!r}; gather_seq of one sequence "
+          f"{gather_ms!r} ms wall (CUDA events), bound {out['gather_bound_ms']!r}"
+          f" ms ({nbytes} bytes read and written)")
+    return out
+
+
+def ssd_ops(cfg, tokens: int) -> int:
+    """fp32 operations of the SSD recurrence over `tokens` tokens of every
+    Mamba2 layer: per (head, channel, state) entry, (B outer x) * dt,
+    a * H + that, and the read-out's multiply-add."""
+    from repro_torch.models import zamba2
+    return 6 * tokens * cfg.n_layers * zamba2.ssm_heads(cfg) \
+        * cfg.ssm.head_dim * cfg.ssm.state_dim
+
+
 def cell_bounds(cfg, params) -> dict:
     """Least device times (:func:`bound`) of a decode step at SLOTS slots
     and of a forward on PREFILL_B x PREFILL_S tokens. Bytes: every weight
     but the embedding, read once (a step of an MoE model streams every
-    expert: at SLOTS tokens each expert's capacity is top_k slots).
-    Operations: 2 per weight that a token uses (top_k of the experts) and
-    the causal attention's two products."""
+    expert: at SLOTS tokens each expert's capacity is top_k slots; a step
+    of zamba2 streams its shared block once per application, as it does
+    not fit the 50 MB L2, and reads and writes the fp32 SSM state).
+    Operations: 2 per weight that a token uses (top_k of the experts;
+    the shared block once per application), the causal attention's two
+    products, and zamba2's SSD recurrence in fp32."""
     ws = [t for k, v in params.items() if k != "embed"
           for t in (_tensors(v) if isinstance(v, dict) else [v])]
     n_w = sum(t.numel() for t in ws)
     nbytes = sum(t.numel() * t.element_size() for t in ws)
+    step_bytes, attn_layers = nbytes, cfg.n_layers
+    step_fp32, fwd_fp32 = 0, 0
     if cfg.moe:
         m = cfg.moe
         n_w -= cfg.n_layers * (m.n_experts - m.top_k) * 3 * cfg.d_model \
             * m.expert_d_ff
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        _, attn_layers = zamba2._pattern(cfg)
+        shared = list(_tensors(params["shared"]))
+        n_w += (attn_layers - 1) * sum(t.numel() for t in shared)
+        step_bytes += (attn_layers - 1) * sum(
+            t.numel() * t.element_size() for t in shared)
+        state = zamba2.init_state(cfg, SLOTS, 1, device="meta")["ssm"]
+        step_bytes += 2 * state.numel() * state.element_size()
+        step_fp32, fwd_fp32 = ssd_ops(cfg, SLOTS), \
+            ssd_ops(cfg, PREFILL_B * PREFILL_S)
     hd, s = cfg.resolved_head_dim, PREFILL_S
-    attn = 4 * PREFILL_B * cfg.n_heads * hd * s * (s + 1) // 2 * cfg.n_layers
-    step_ms, step_by = bound(nbytes, 2 * SLOTS * n_w, "bfloat16")
-    fwd_ms, fwd_by = bound(nbytes, 2 * PREFILL_B * s * n_w + attn,
-                           "bfloat16")
+    attn = 4 * PREFILL_B * cfg.n_heads * hd * s * (s + 1) // 2 * attn_layers
+    step_ms, step_by = bound(step_bytes, 2 * SLOTS * n_w, "bfloat16",
+                             step_fp32)
+    fwd_ops = 2 * PREFILL_B * s * n_w + attn
+    fwd_ms, fwd_by = bound(nbytes, fwd_ops, "bfloat16", fwd_fp32)
     print(f"[bound] {cfg.name}: {nbytes} bytes of weights beside the "
           f"embedding, {n_w} used per token; decode step at {SLOTS} slots "
+          f"{step_bytes} bytes, {2 * SLOTS * n_w} operations"
+          f"{f' and {step_fp32} in fp32' if step_fp32 else ''}: "
           f"{step_ms!r} ms ({step_by}); forward on {PREFILL_B} x {s} tokens, "
-          f"{2 * PREFILL_B * s * n_w + attn} operations, {fwd_ms!r} ms "
+          f"{fwd_ops} operations"
+          f"{f' and {fwd_fp32} in fp32' if fwd_fp32 else ''}, {fwd_ms!r} ms "
           f"({fwd_by})")
-    return {"step_ms": step_ms, "forward_ms": fwd_ms}
+    return {"step_ms": step_ms, "forward_ms": fwd_ms,
+            "step_bytes": step_bytes}
 
 
 def plain_agreement(torch, cfg, params, sv) -> int:
@@ -1613,14 +1863,83 @@ def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
           f"the median step {1 - bd['device_ms'] / median_ms!r}")
 
 
+def zamba2_phase(torch) -> dict:
+    """zamba2-1.2b in bf16, everything timed on the host clock or with
+    CUDA events: its bounds; served with the driver's defaults (the
+    launch counters set to 0 just before and read just after: 119
+    rowstream_matmul and 6 flash_decode launches a step), the same
+    requests on the plain path; each block of one step against the plain
+    path; the CUDA-event wall time of the step's 119 products; forward on
+    PREFILL_B x PREFILL_S tokens; then in fp32 one step against the plain
+    path and decode against forward; then the paged pool."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    cfg = ALL_ARCHS[ZAMBA]
+    params = init_params(torch, cfg)
+    z = {"cfg": cfg, "bound": cell_bounds(cfg, params)}
+    sv = z["serve"] = serve_phase(torch, cfg, params, per_step(cfg))
+    print_serve("zamba2-1.2b", sv)
+    prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                        key=lambda r: r.rid)]
+    plain_agreement(torch, cfg, params, sv)
+    zamba2_layer_phase(torch, cfg, params, prompts)
+    z["rm_wall_ms"] = timed_ms(rowstream_work(
+        torch, zamba_weights(cfg, params), SLOTS)["kernel"], 5)
+    zf = z["forward"] = forward_phase(torch, cfg, params)
+    print_forward("zamba2-1.2b", zf)
+    del params, zf["logits"]
+    torch.cuda.empty_cache()
+    z32 = zamba2_fp32_phase(torch, cfg, prompts, zf["tokens"])
+    print_decode("zamba2-1.2b fp32 (fp32 cache)", z32)
+    z["pool"] = paged_pool_phase(torch)
+    return z
+
+
+def zamba2_profiled(torch, z: dict) -> tuple[dict, list]:
+    """zamba2-1.2b's profiled parts, on weights made again from the same
+    seed: the step's 119 rowstream_matmul launches (kernel, plain version,
+    torch.matmul), the profiled split of a decode step and of the forward,
+    and one line per distinct product shape (in_proj's (2048, 8384) among
+    them: its rows of 16768 bytes are not whole 4 KB rows)."""
+    from repro_torch.models import layers, zamba2
+    cfg, sv, zf = z["cfg"], z["serve"], z["forward"]
+    params = init_params(torch, cfg)
+    name = "rowstream_matmul on zamba2-1.2b"
+    works = {name: rowstream_work(torch, zamba_weights(cfg, params), SLOTS)}
+    works[name].update(per=f"one zamba2-1.2b decode step at {SLOTS} slots",
+                       wall_ms=z["rm_wall_ms"])
+    time_works(works)
+    bd = step_breakdown(torch, cfg, params,
+                        per_step(cfg)["rowstream_matmul"], labels=[
+                            (zamba2, "_ssd_scan", "SSD scan"),
+                            (zamba2, "_mamba_block_step",
+                             "other Mamba2 block ops (conv, norms, gate)")])
+    print_breakdown("zamba2-1.2b", bd, sv["median_step_ms"])
+    b = z["bound"]
+    print(f"[bound] zamba2-1.2b decode step, {b['step_bytes']} bytes: bound "
+          f"{b['step_ms']!r} ms, device time {bd['device_ms']!r} ms at "
+          f"{b['step_ms'] / bd['device_ms']!r} of it")
+    fb = forward_breakdown(torch, cfg, params, zf["tokens"], labels=[
+        (zamba2, "_ssd_scan", "SSD scan"), (zamba2, "_causal_conv", "conv"),
+        (layers, "attention_scores", "shared attention")])
+    print_split("zamba2-1.2b forward", fb, zf["forward_ms"])
+    shapes = list(dict.fromkeys(tuple(w.shape)
+                                for w in zamba_weights(cfg, params)))
+    del params
+    torch.cuda.empty_cache()
+    return ({n: numbers(w) for n, w in works.items()},
+            rowstream_products(torch, shapes))
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
-                                       "rwkv_scan"],
-                    help="run only this kernel's phase: the card line, its "
-                         "build, its checks and its timings; no ok line")
+                                       "rwkv_scan", "zamba2"],
+                    help="run only this kernel's phase (the card line, its "
+                         "build, its checks and its timings) or zamba2's "
+                         "phases (all kernels built and checked); no ok "
+                         "line")
     ap.add_argument("--baseline", action="store_true",
                     help="with --only rowstream_matmul or rwkv_scan: the "
                          "tree's kernel predates its redesign; time its "
@@ -1646,7 +1965,8 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
-    names = build.KERNELS if args.only is None else (args.only,)
+    names = build.KERNELS if args.only in (None, "zamba2") \
+        else (args.only,)
     t0 = time.perf_counter()
     logs = build.build(names)
     build_s = time.perf_counter() - t0
@@ -1683,6 +2003,14 @@ def main(argv=None) -> int:
     errs.update({"rowstream_matmul": check_rowstream(torch, dev),
                  "rwkv_scan": check_rwkv_scan(torch, dev)})
     check_rowstream_norms(torch, dev)
+    if args.only == "zamba2":
+        z = zamba2_phase(torch)
+        works, products = zamba2_profiled(torch, z)
+        print(json.dumps({"zamba2": {"works": works, "products": products,
+                                     "pool": z["pool"]}}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
+        print(card)
+        return 0
 
     # Everything timed on the host clock or with CUDA events comes before
     # the first use of the profiler: its hooks stay behind and slow later
@@ -1732,6 +2060,8 @@ def main(argv=None) -> int:
     logits_phase(torch, g32, params, gprompts, SLOTS, MAX_SEQ)
     del params
     torch.cuda.empty_cache()
+
+    z = zamba2_phase(torch)
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -1809,8 +2139,16 @@ def main(argv=None) -> int:
         experts, (moe, "moe_ffn", "routing, dispatch and combine"),
         attention])
     print_split("granite-moe-3b forward", gfb, gf["forward_ms"])
-    del params
+    gbound = rowstream_work(torch, granite_weights(gcfg, params), SLOTS)
+    gbound_ms = gbound["bound_ms"]
+    print(f"[bound] rowstream_matmul on one granite-moe-3b decode step: "
+          f"{gbound['launches_per_step']} products, {gbound['bytes']} bytes, "
+          f"bound {gbound_ms!r} ms ({gbound['bound_by']})")
+    del params, gbound
     torch.cuda.empty_cache()
+
+    zworks, zproducts = zamba2_profiled(torch, z)
+    works.update(zworks)
     long_fd = flash_phase(FD_LENGTHS[1:])
     check_rowstream_launches(torch, dev)
 
@@ -1819,7 +2157,9 @@ def main(argv=None) -> int:
              "granite-moe-3b serve": gs["counts"],
              "granite-moe-3b forward": gf["counts"],
              "rwkv6-3b forward": pf["counts"],
-             "rwkv6-3b serve": rs["counts"]}
+             "rwkv6-3b serve": rs["counts"],
+             "zamba2 serve": z["serve"]["counts"],
+             "zamba2 forward": z["forward"]["counts"]}
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
                 "rowstream_matmul":
                     "src/repro/kernels/rowstream_matmul/kernel.py:49",
@@ -1839,8 +2179,13 @@ def main(argv=None) -> int:
             "launches_by_path": {p: c[name] for p, c in paths.items()}}
         if name == "rowstream_matmul":
             entry["on_rwkv6_step"] = works["rowstream_matmul on rwkv6-3b"]
+            entry["on_zamba2_step"] = works[
+                "rowstream_matmul on zamba2-1.2b"]
+            entry["zamba2_products"] = zproducts
+            entry["granite_step_bound_ms"] = gbound_ms
         if name == "flash_decode":
             entry["long_context"] = long_fd
+            entry["paged_pool"] = z["pool"]
         kernels.append(entry)
     print(f"[run] {time.perf_counter() - t_start:.0f} s from the card line "
           f"to the kernels line")
@@ -1873,6 +2218,12 @@ def init_params(torch, cfg) -> dict:
 def per_step(cfg) -> dict:
     """Each kernel's launches in one decode step of `cfg`."""
     rm = RM_PER_LAYER[cfg.name] * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        _, n_shared = zamba2._pattern(cfg)
+        return {"flash_decode": n_shared,
+                "rowstream_matmul": rm + len(SHARED_PRODUCTS) * n_shared,
+                "rwkv_scan": 0}
     if cfg.family == "ssm":
         return {"flash_decode": 0, "rowstream_matmul": rm, "rwkv_scan": 0}
     return {"flash_decode": cfg.n_layers, "rowstream_matmul": rm,

@@ -2,12 +2,13 @@
 
 A subset of ``repro.configs.base``: the PyTorch port imports nothing of
 the JAX package, so it keeps its own copy of the fields its models read,
-and of the dense and MoE parts of :func:`reduced`, so that both packages
-build the same shapes from the same config. The SSM family's rwkv6 reads
-no field beyond the dense ones (its head count is ``d_model // 64``), and
-the dense part of ``reduced`` is also the reference's reduced rwkv6. A
-slice that ports another family (hybrid, vlm, audio) adds that family's
-fields.
+and of the parts of :func:`reduced` for the families it has, so that both
+packages build the same shapes from the same config. The SSM family's
+rwkv6 reads no field beyond the dense ones (its head count is
+``d_model // 64``), and the dense part of ``reduced`` is also the
+reference's reduced rwkv6. The hybrid family (zamba2) adds
+:class:`SSMConfig` and ``shared_attn_every``. A slice that ports another
+family (vlm, audio) adds that family's fields.
 """
 from __future__ import annotations
 
@@ -26,9 +27,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64           # N (per-head state size)
+    conv_width: int = 4
+    expand: int = 2               # inner dim = expand * d_model
+    head_dim: int = 64            # mamba2 head size
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense, moe or ssm (those ported)
+    family: str                   # dense, moe, ssm or hybrid (those ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +51,9 @@ class ArchConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one shared attention block applied every k SSM blocks
+    shared_attn_every: Optional[int] = None
     dtype: str = "bfloat16"
     # provenance
     source: str = ""
@@ -52,11 +64,11 @@ class ArchConfig:
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """A tiny same-family config for CPU smoke tests (the dense and MoE
-    cases of the reference's ``reduced``: same shapes for the same
-    config)."""
+    """A tiny same-family config for CPU smoke tests (the dense, MoE, SSM
+    and hybrid cases of the reference's ``reduced``: same shapes for the
+    same config)."""
     base = dict(
-        n_layers=2,
+        n_layers=max(2, (cfg.shared_attn_every or 1) + 1),
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2),
@@ -68,7 +80,12 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         base["moe"] = MoEConfig(n_experts=min(cfg.moe.n_experts, 8),
                                 top_k=min(cfg.moe.top_k, 2),
                                 expert_d_ff=64)
+    if cfg.ssm:
+        base["ssm"] = SSMConfig(state_dim=16, head_dim=16, expand=2)
     if cfg.sliding_window:
         base["sliding_window"] = 32
+    if cfg.shared_attn_every:
+        base["shared_attn_every"] = 2
+        base["n_layers"] = 5
     base.update(overrides)
     return dataclasses.replace(cfg, **base)

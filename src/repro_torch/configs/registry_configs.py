@@ -1,8 +1,8 @@
 """Arch-id -> ArchConfig registry of the port: the dense and MoE configs
-run by ``models/transformer``, and the SSM config run by
-``models/rwkv6``."""
+run by ``models/transformer``, the SSM config run by ``models/rwkv6`` and
+the hybrid config run by ``models/zamba2``."""
 from . import (granite_moe_3b, h2o_danube_1_8b, minitron_8b, phi35_moe_42b,
-               qwen2_7b, qwen3_14b, rwkv6_3b)
+               qwen2_7b, qwen3_14b, rwkv6_3b, zamba2_1_2b)
 
 ALL_ARCHS = {
     "qwen2-7b": qwen2_7b.CONFIG,
@@ -10,6 +10,7 @@ ALL_ARCHS = {
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
     "rwkv6-3b": rwkv6_3b.CONFIG,
+    "zamba2-1.2b": zamba2_1_2b.CONFIG,
     "granite-moe-3b-a800m": granite_moe_3b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
 }

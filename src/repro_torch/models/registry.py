@@ -1,4 +1,4 @@
-"""Arch registry: the dense, MoE and SSM subset of
+"""Arch registry: the dense, MoE, SSM and hybrid subset of
 ``repro.models.registry``.
 
     adapter = get_adapter("rwkv6-3b")
@@ -10,8 +10,10 @@
 ``pos`` is a host int. The dense and MoE families share
 ``models/transformer``, as in the reference; the SSM family runs
 ``models/rwkv6``, whose decode state ignores ``max_seq`` and ``dtype`` (as
-the reference's does: the state's dtypes are fixed). The other families
-(and ``loss``) wait for their slices.
+the reference's does: the state's dtypes are fixed); the hybrid family
+runs ``models/zamba2``, whose decode state holds fp32 SSM states, conv
+tails and a KV cache in ``dtype`` for each application of its shared
+attention block. The other families (and ``loss``) wait for their slices.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
-from . import rwkv6, transformer
+from . import rwkv6, transformer, zamba2
 
 
 def _tfm_forward(params, cfg, batch):
@@ -44,6 +46,14 @@ def _rwkv_init_state(cfg, batch, max_seq, dtype, device):
     return rwkv6.init_state(cfg, batch, device)
 
 
+def _zamba_forward(params, cfg, batch):
+    return zamba2.forward(params, cfg, batch["tokens"])
+
+
+def _zamba_decode(params, cfg, batch, state, pos):
+    return zamba2.decode_step(params, cfg, batch["tokens"], state, pos)
+
+
 _TRANSFORMER = dict(init=transformer.init, forward=_tfm_forward,
                     decode=_tfm_decode, init_state=transformer.init_cache)
 
@@ -52,6 +62,8 @@ _FAMILY = {
     "moe": _TRANSFORMER,
     "ssm": dict(init=rwkv6.init, forward=_rwkv_forward, decode=_rwkv_decode,
                 init_state=_rwkv_init_state),
+    "hybrid": dict(init=zamba2.init, forward=_zamba_forward,
+                   decode=_zamba_decode, init_state=zamba2.init_state),
 }
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: no file of it imports ``jax`` or ``repro``; its
-serve driver runs on the CPU without loading either; its entry points
-default to ``cuda`` and raise without a card; kernel wrappers given CPU
-tensors launch nothing. Also the batcher copy's behaviour, mirroring
-tests/test_serve.py's batcher tests."""
+serve driver and row-paged KV cache run on the CPU without loading either;
+its entry points default to ``cuda`` and raise without a card; kernel
+wrappers given CPU tensors launch nothing. Also the batcher copy's
+behaviour, mirroring tests/test_serve.py's batcher tests."""
 import ast
 import os
 import subprocess
@@ -21,6 +21,7 @@ from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.launch import serve as port_serve
 from repro_torch.serve.batching import ContinuousBatcher, Request
+from repro_torch.serve.kv_cache import RowPagedKVCache
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
@@ -47,12 +48,16 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_every_port_module_is_scanned():
     """The scan above globs the package: the modules of each slice are in
-    it, the MoE family's and the prefill path's included."""
+    it, the MoE family's, the prefill path's, the hybrid family's and the
+    row-paged cache's included."""
     names = {str(p.relative_to(REPO / "src" / "repro_torch"))
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"models/moe.py", "models/transformer.py", "models/layers.py",
             "models/rwkv6.py", "configs/granite_moe_3b.py",
-            "configs/phi35_moe_42b.py", "launch/serve.py"} <= names
+            "configs/phi35_moe_42b.py", "launch/serve.py",
+            "models/zamba2.py", "configs/zamba2_1_2b.py",
+            "serve/kv_cache.py", "serve/batching.py",
+            "workloads/stream.py"} <= names
     assert REPO / "chip_smoke.py" in PORT_FILES
 
 
@@ -63,12 +68,21 @@ def test_serve_driver_on_cpu_loads_no_jax_or_repro():
         "from repro_torch.launch import serve\n"
         "from repro_torch.configs import ALL_ARCHS, reduced\n"
         "from repro_torch.models.registry import get_adapter\n"
-        "for arch in ('qwen2-7b', 'granite-moe-3b-a800m'):\n"
+        "from repro_torch.serve import RowPagedKVCache, tokens_per_row\n"
+        "for arch in ('qwen2-7b', 'granite-moe-3b-a800m', 'zamba2-1.2b'):\n"
         "    assert serve.main(['--arch', arch, '--reduced', '--device',"
         " 'cpu', '--requests', '2', '--slots', '2', '--max-new', '2']) == 0\n"
         "    ad = get_adapter(reduced(ALL_ARCHS[arch]))\n"
         "    p = ad.init(torch.Generator().manual_seed(0))\n"
         "    ad.forward(p, {'tokens': torch.ones((1, 4), dtype=torch.int64)})\n"
+        "c = RowPagedKVCache(8, tokens_per_row(64, 2), 2, 64, 2, 4,"
+        " device='cpu')\n"
+        "c.alloc_seq(0, 0)\n"
+        "runs = c.append_chunk_stream(0, 40)\n"
+        "c.write(int(c.page_table[0, 0]), 0, torch.ones((2, 64)),"
+        " torch.ones((2, 64)))\n"
+        "assert c.gather_seq(0)[0].shape == (40, 2, 64)"
+        " and len(c.read_stream(0)) == 6 == len(runs)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -87,7 +101,11 @@ def test_default_device_raises_without_a_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         port_serve.main(["--reduced", "--requests", "1", "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        RowPagedKVCache(16, 16, 2, 64, 4, 8)
     assert resolve_device("cpu").type == "cpu"
+    assert RowPagedKVCache(16, 16, 2, 64, 4, 8,
+                           device="cpu").pool_k.device.type == "cpu"
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
