@@ -14,7 +14,11 @@ GPU, from the root of a checkout:
    ragged lengths, bf16 inputs and rwkv6-3b's full width. rowstream_matmul
    is also held, at the decode path's shapes, to a norm-wise bound per
    slice of 256 columns, to identical bits from two calls, and to one
-   device kernel and one allocation (the output) per call.
+   device kernel and one allocation (the output) per call. The path
+   shapes include whisper-small's and llama-3.2-vision's products (the
+   tied head (768, 51968) among them) and flash_decode's cross-attention
+   over 1500 frames and 1601 vision tokens (neither a whole number of
+   4 KB rows).
 3. Drives the main paths at full width in bf16 with random weights from a
    seed, each with the launch counters set to 0 just before it and read
    just after, each model freed before the next:
@@ -49,6 +53,20 @@ GPU, from the root of a checkout:
      tokens of one qwen2-7b layer written token by token, each gathered
      bit for bit against a CPU copy and attended by flash_decode against
      its plain version.
+   * whisper-small, whole, and llama-3.2-vision-90b at full width with
+     its depth cut to 2 pattern units (8 self-attention and 2
+     cross-attention layers, 21.3 GB; the whole 100 layers do not fit one
+     card; a line says so), each with its biases and LayerNorms (whisper)
+     or tanh gates (mllama) set from the seed: served as qwen2-7b (97
+     rowstream_matmul and 24 flash_decode launches a whisper step, 67 and
+     10 an mllama step; the cross KV stays zero, as the reference driver
+     leaves it), the greedy tokens against the plain path's; each layer
+     of one step, the cross KV precomputed from the stub frames or vision
+     embeddings, held against the plain path in bf16; whisper's encoder
+     on 4 x 1500 frames; ``forward`` on 4 x 448 decoder tokens with those
+     frames, or 4 x 1024 tokens with 4 x 1601 vision embeddings; in fp32,
+     64 tokens through ``decode_step`` (cross KV filled, fp32 cache)
+     against ``forward``.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -60,8 +78,12 @@ GPU, from the root of a checkout:
    or one forward (rwkv_scan): the kernel's wall time on the device's clock
    from CUDA events, then device times from torch.profiler, and profiled
    splits of each forward and of a decode step of each model (zamba2's
-   by SSD scan, conv, shared attention and products), zamba2's products
-   one line per shape; each
+   by SSD scan, conv, shared attention and products; whisper's and
+   mllama's steps by rowstream_matmul, self and cross flash_decode;
+   whisper's forward by encoder, decoder self-attention, cross-attention
+   and products), the cross flash_decode launches of a step at their
+   shapes, zamba2's, whisper's and mllama's products one line per shape;
+   each
    profiled window must hold as many device kernels per call as a
    profiled single call, or the run fails. All host-clock and CUDA-event
    timings come before the first use of the profiler, so the qwen2-7b,
@@ -86,7 +108,9 @@ checks, then the 32 launches of one rwkv6-3b forward at full width, each
 on its own inputs synthesised from a seed with rwkv6's decays (wall and
 device time, plain time, bound) and the kernel's plan. ``--only zamba2``
 builds and checks all three kernels, then runs only zamba2's phases and
-the paged pool, profiled parts included (no ``ok`` line). ``--baseline``
+the paged pool, profiled parts included (no ``ok`` line); ``--only
+whisper`` and ``--only mllama`` likewise run only that model's phases.
+``--baseline``
 runs either on a tree whose kernel predates its redesign (copy this
 script into that tree's root): it leaves out the checks and plan that the
 redesign added and times the old kernel's device kernels (for rwkv_scan
@@ -118,6 +142,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # forward). The two paths round to bf16 at the same places and differ only
 # in the order of fp32 sums.
 LOGITS_ATOL = 0.15
+# The fp32 cross families (whisper, mllama) beside it, relative to the
+# largest logit: decode and forward differ only in the order of fp32 sums
+# (a few 1e-6 of it on the H100), while whisper's logits are small enough
+# (max about 2.5) that LOGITS_ATOL alone would pass a cross-attention that
+# drops part of its KV.
+CROSS_FP32_RTOL = 1e-4
 SEED = 0
 # Device kernels of each port kernel, by name (csrc/*.cu).
 FD_KERNELS = ("flash_decode_simt", "flash_decode_mma")
@@ -137,11 +167,16 @@ RWKV_PRODUCTS = ["wr", "wk", "wv", "wg", "w_lora_a", "w_lora_b", "wo", "ck",
                  "cv", "cr"]
 # rowstream_matmul's decode-path shapes at 4 slots: qwen2-7b's (wq and wo,
 # wk and wv, w_gate and w_up, w_down, head), then rwkv6-3b's (wr wk wv wg
-# wo cr, w_lora_a, w_lora_b, ck, cv, head).
+# wo cr, w_lora_a, w_lora_b, ck, cv, head), whisper-small's (the attention
+# products, w_up, w_down, the tied head) and llama-3.2-vision's (wq and
+# wo, wk and wv, w_gate and w_up, w_down, head).
 RM_PATH = [(4, 3584, 3584), (4, 3584, 512), (4, 3584, 18944),
            (4, 18944, 3584), (4, 3584, 152064),
            (4, 2560, 2560), (4, 2560, 64), (4, 64, 2560), (4, 2560, 8960),
-           (4, 8960, 2560), (4, 2560, 65536)]
+           (4, 8960, 2560), (4, 2560, 65536),
+           (4, 768, 768), (4, 768, 3072), (4, 3072, 768), (4, 768, 51968),
+           (4, 8192, 8192), (4, 8192, 1024), (4, 8192, 28672),
+           (4, 28672, 8192), (4, 8192, 128256)]
 # Norm-wise bound of rowstream_matmul against its plain version, per slice
 # of RM_SLICE columns: ||out - ref|| / ||ref|| over the slice (all rows).
 # Both round the same fp32 sum, taken in another order, to the output
@@ -156,8 +191,20 @@ RM_SLICE = 256
 # Defaults of launch/serve.py, and the prompt batch of each forward.
 SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
 PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
+# `--only` choices that build and check every kernel, then run a model's
+# phases.
+MODEL_ONLY = (None, "zamba2", "whisper", "mllama")
 GRANITE = "granite-moe-3b-a800m"
 ZAMBA = "zamba2-1.2b"
+WHISPER = "whisper-small"
+MLLAMA = "llama-3.2-vision-90b"
+# llama-3.2-vision-90b (100 layers, about 180 GB in bf16) does not fit one
+# 80 GB card: it runs at full width with its depth cut to this many pattern
+# units of 4 self-attention layers and 1 cross-attention layer.
+MLLAMA_UNITS = 2
+# Stub inputs of the cross-attention families: frames and vision
+# embeddings N(0, 1) from SEED + 14.
+CROSS_SEED = SEED + 14
 # rowstream_matmul launches per layer of a decode step: qwen2-7b's seven
 # products, rwkv6-3b's ten, granite's q, k, v, o and router (its expert
 # products are torch.einsum, as in the reference), zamba2's in_proj and
@@ -177,9 +224,12 @@ POOL_SEQS, POOL_S, POOL_CHUNK = 4, 4096, 96
 LABEL = "smoke::"
 # flash_decode's timed cache lengths: the serve shape and long context.
 FD_LENGTHS = (MAX_SEQ, 4096, 32768)
-# Weight bytes a per-product timing round streams: over twice the 50 MB L2,
-# so every weight comes from device memory, as in a decode step.
-ROUND_BYTES = 128 << 20
+# Weight bytes a per-product timing round reads between two reads of one
+# weight: twice the 50 MB L2, so every weight comes from device memory, as
+# in a decode step. (On an H100 a round of two 80 MB copies of whisper's
+# tied head read part of each from L2: 16.5 us a launch against a 23.95 us
+# byte bound.)
+REUSE_BYTES = 100 << 20
 # Kernels that open every profiler window and are left out of its counts
 # and times (see `profiled`): torch.cuda._sleep's.
 PAD_LAUNCHES = 256
@@ -339,18 +389,23 @@ def labelled(*targets):
 
 
 def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
-             products: bool) -> dict:
+             products: bool, claims=()) -> dict:
     """Device ms per call, by part, of a profile that recorded host ops
     (``profile_calls(..., cpu=True)``). The device kernels that a part of
-    `kernel_parts` (part -> device kernel names) names go to that part.
-    Each other kernel goes to the part of `label_parts` (name given to
-    :func:`labelled` -> part) of the innermost labelled range around the
-    host op that launched it; else, with `products`, to "products" if an
-    aten::matmul launched it; else to "other", which also takes device
-    time no host op claims. "device" is the total."""
+    `kernel_parts` (part -> device kernel names) names go to that part,
+    unless they run inside the device-side range of a labelled function
+    named in `claims`: then to that function's part of `label_parts`
+    (the port's kernels are launched through ctypes, outside any host op
+    the profiler links them to; "<part> kernels" counts them). Each other
+    kernel goes to the part of `label_parts` (name given to
+    :func:`labelled` -> part) of the first name in `label_parts`' order
+    whose range is around the host op that launched it; else, with
+    `products`, to "products" if an aten::matmul launched it; else to
+    "other", which also takes device time no host op claims. "device" is
+    the total."""
     import torch
     cpu = torch.autograd.DeviceType.CPU
-    named = [n for names in kernel_parts.values() for n in names]
+    named = {n: part for part, names in kernel_parts.items() for n in names}
     us = {part: _device_us(prof, names)
           for part, names in kernel_parts.items()}
     us.update({part: 0.0 for part in label_parts.values()})
@@ -363,9 +418,9 @@ def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
         while e is not None:
             chain.append(e.name)
             e = e.cpu_parent
-        labels = [n[len(LABEL):] for n in chain if n.startswith(LABEL)]
-        owner = next((label_parts[n] for n in labels if n in label_parts),
-                     None)
+        labels = {n[len(LABEL):] for n in chain if n.startswith(LABEL)}
+        owner = next((part for n, part in label_parts.items()
+                      if n in labels), None)
         if owner is None and products and "aten::matmul" in chain:
             owner = "products"
         if owner is None:
@@ -374,10 +429,32 @@ def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
                          if not k.name.startswith(LABEL)
                          and PAD_KERNEL not in k.name
                          and not any(n in k.name for n in named))
+    claimed = {}
+    if claims:
+        device = torch.autograd.DeviceType.CUDA
+        events = [e for e in prof.events() if e.device_type == device]
+        spans = [(label_parts[e.name[len(LABEL):]], e.time_range)
+                 for e in events if e.name.startswith(LABEL)
+                 and e.name[len(LABEL):] in claims]
+        for e in events:
+            part = next((p for n, p in named.items() if n in e.name), None)
+            if part is None or e.name.startswith(LABEL):
+                continue
+            t = e.time_range
+            owner = next((c for c, r in spans
+                          if r.start <= t.start and t.end <= r.end), None)
+            if owner is not None:
+                us[part] -= t.elapsed_us()
+                us[owner] += t.elapsed_us()
+                claimed[owner] = claimed.get(owner, 0) + 1
     total = _device_us(prof)
     out = {part: t / reps / 1e3 for part, t in us.items()}
     out["other"] = (total - sum(us.values())) / reps / 1e3
     out["device"] = total / reps / 1e3
+    if claims:
+        out["claim ranges"] = len(spans) / reps
+        out.update((f"{part} kernels", n / reps)
+                   for part, n in claimed.items())
     return out
 
 
@@ -573,9 +650,16 @@ def check_rowstream_launches(torch, dev) -> None:
 def flash_cases() -> list:
     """flash_decode's cases (b, h, hkv, S, d, pos, q dtype, kv dtype,
     [offset of the caches in elements]); the first FD_PATH_CASES are the
-    serve path's shape."""
+    serve paths' shapes: qwen2-7b's (also granite's), whisper-small's and
+    llama-3.2-vision's self-attention at 128 slots, and their
+    cross-attention over all 1500 frames (46.875 4 KB rows a head) and
+    1601 vision tokens (100 rows and one token)."""
     cases = [(4, 28, 4, 128, 128, p, "bfloat16", "bfloat16")
              for p in (0, 63, 127)]
+    cases += [(4, 12, 12, 128, 64, 127, "bfloat16", "bfloat16"),
+              (4, 64, 8, 128, 128, 127, "bfloat16", "bfloat16"),
+              (4, 64, 8, 1601, 128, 1600, "bfloat16", "bfloat16"),
+              (4, 12, 12, 1500, 64, 1499, "bfloat16", "bfloat16")]
     # g * d = 4096, the widest group the wrapper takes: over 48 KB of
     # shared memory, which the kernel opts into.
     cases += [(1, 32, 2, 300, 256, 150, qt, kt) for qt, kt in
@@ -606,7 +690,7 @@ def flash_cases() -> list:
     return cases
 
 
-FD_PATH_CASES = 3
+FD_PATH_CASES = 7
 
 
 def flash_inputs(torch, gen, case) -> tuple:
@@ -912,7 +996,8 @@ def scan_work(torch, launches: list) -> dict:
 
 
 def flash_work(torch, cfg, slots: int, S: int, kernel=None) -> dict:
-    """One launch per layer, each on its own bf16 cache of S slots (28
+    """One launch per layer of `cfg` (its n_layers, heads and head dim),
+    each on its own bf16 cache of S slots (28
     distinct caches for qwen2-7b: 0.94 GB at S 4096 and 7.5 GB at S 32768,
     so no length but the serve shape's fits in the 50 MB L2), with every
     slot valid (pos = S - 1): on the kernel, on the plain version and on
@@ -976,7 +1061,7 @@ def flash_work(torch, cfg, slots: int, S: int, kernel=None) -> dict:
             "library_how": how, "kernel": run(kernel or flash_decode),
             "plain": run(flash_decode_ref), "library": library,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "per": f"{L} qwen2-7b layers' caches at {slots} slots, S {S}, "
+            "per": f"{L} {cfg.name} layers' caches at {slots} slots, S {S}, "
                    f"pos {pos}"}
 
 
@@ -1011,15 +1096,17 @@ def flash_phase(lengths=FD_LENGTHS) -> dict:
 def rowstream_products(torch, shapes, baseline=False) -> list:
     """Per launch at each (k, n) of `shapes`, x of SLOTS rows, bf16: device
     time of the kernel and of torch.matmul over distinct weights of the
-    shape (ROUND_BYTES or more a round, so each comes cold from device
-    memory), the byte bound and, unless `baseline`, the plan."""
+    shape (REUSE_BYTES or more read between two reads of one weight, so
+    each comes cold from device memory), the byte bound and, unless
+    `baseline`, the plan."""
     from repro_torch.kernels.rowstream_matmul import kernel
     from repro_torch.kernels.rowstream_matmul.ops import rowstream_matmul
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rows = []
     for k, n in shapes:
-        copies = -(-ROUND_BYTES // (2 * k * n))
+        copies = 1 if 2 * k * n >= REUSE_BYTES \
+            else 1 + -(-REUSE_BYTES // (2 * k * n))
         x, w = rowstream_inputs(torch, gen, SLOTS, k, n, torch.bfloat16)
         ws = [w] + [rowstream_inputs(torch, gen, 1, k, n, torch.bfloat16)[1]
                     for _ in range(copies - 1)]
@@ -1035,8 +1122,10 @@ def rowstream_products(torch, shapes, baseline=False) -> list:
             p = kernel.plan_for(x, w)
             row.update(blocks=p.blocks, cluster=p.cluster,
                        splits=[p.cluster * g for _, _, g in p.classes],
-                       ws_bytes=p.ws_floats * 4)
-            text = (f"; {p.blocks} blocks in clusters of {p.cluster}, "
+                       ws_bytes=p.ws_floats * 4,
+                       device_kernel=RM_KERNELS[p.vec == 1])
+            text = (f"; device kernel {row['device_kernel']}, {p.blocks} "
+                    f"blocks in clusters of {p.cluster}, "
                     f"splits per tile {row['splits']}, workspace "
                     f"{row['ws_bytes']} bytes")
         print(f"[product] ({SLOTS}, {k}) @ ({k}, {n}) bf16: kernel "
@@ -1135,7 +1224,7 @@ def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
     b = run.batcher
     check(len(b.completed) == n_requests,
           f"serve answered {len(b.completed)} of {n_requests} requests")
-    V = params["lm_head"].shape[1]
+    V = vocab_width(cfg)
     for req in b.completed:
         check(len(req.out_tokens) == max_new
               and all(0 <= t < V for t in req.out_tokens),
@@ -1156,12 +1245,13 @@ def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
 
 
 def fed_steps(torch, ad, params, requests_tokens, slots, max_seq,
-              steps=8):
+              steps=8, cross=None):
     """A decode state after `steps` greedy steps on the kernel path from
     the first token of each of the first `slots` requests, and the next
-    tokens."""
+    tokens; the state's cross KV filled from `cross` (xk, xv) where
+    given."""
     from repro_torch.launch.serve import greedy_sample
-    cache = ad.init_decode_state(slots, max_seq, device="cuda")
+    cache = filled_state(ad, slots, max_seq, cross)
     tok = torch.tensor([[t[0]] for t in requests_tokens[:slots]],
                        dtype=torch.int32, device="cuda")
     with torch.inference_mode():
@@ -1195,7 +1285,7 @@ def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
         check(all(gap <= 2 * shift for _, _, gap, shift in flips),
               f"{cfg.name}: a routing decision differs between the paths "
               f"by more than rounding explains: {flips}")
-    V = params["lm_head"].shape[1]
+    V = vocab_width(cfg)
     check(tuple(lk.shape) == (slots, 1, V) and bool(lk.isfinite().all()),
           f"kernel-path logits {tuple(lk.shape)} not finite")
     diff = (lk.float() - lp.float()).abs().max().item()
@@ -1212,13 +1302,15 @@ def logits_phase(torch, cfg, params, requests_tokens, slots, max_seq):
 
 
 def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
-                   max_seq=MAX_SEQ, steps=5, labels=()) -> dict:
+                   max_seq=MAX_SEQ, steps=5, labels=(), claims=()) -> dict:
     """Device time of one decode step (after the first few), by kernel
     group, from torch.profiler over `steps` steps that each end with the
     sampled tokens on the host; the step must run one rowstream_matmul
     device kernel for each of its `rm_launches` launches. With `labels`
     ((module, name, part) each) host ops are recorded too, and the device
-    time of those functions is split out of "other" (:func:`op_split`)."""
+    time of those functions is split out of "other" (:func:`op_split`);
+    those named in `claims` also take the port's kernels they launch out
+    of "rowstream_ms" and "flash_ms"."""
     from repro_torch.launch.serve import greedy_sample
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
@@ -1249,11 +1341,17 @@ def step_breakdown(torch, cfg, params, rm_launches: int, slots=SLOTS,
     if labels:
         split = op_split(prof, steps, {"rowstream_matmul": RM_KERNELS,
                                        "flash_decode": FD_KERNELS},
-                         {n: part for _, n, part in labels}, products=False)
+                         {n: part for _, n, part in labels}, products=False,
+                         claims=claims)
         out["parts"] = {part: split[part] for _, _, part in labels}
         check(all(t > 0 for t in out["parts"].values()),
               f"{cfg.name} step: a part took no device time: {split}")
-        out["other_ms"] -= sum(out["parts"].values())
+        out["rowstream_ms"] = split["rowstream_matmul"]
+        out["flash_ms"] = split["flash_decode"]
+        out["claimed"] = {label_part: split.get(f"{label_part} kernels", 0)
+                          for _, n, label_part in labels if n in claims}
+        out["other_ms"] = total - out["rowstream_ms"] - out["flash_ms"] \
+            - sum(out["parts"].values())
     return out
 
 
@@ -1347,13 +1445,23 @@ def rwkv_forward_phase(torch, cfg, params) -> dict:
     return out
 
 
-def decode_logits(torch, ad, params, tokens, cache_dtype=None):
-    """Logits (b, DECODE_T, V) fp32 of the first DECODE_T tokens of
-    `tokens`, stepped one by one through decode_step; a KV cache in
-    `cache_dtype` where given (bf16 by default, as in the reference)."""
+def filled_state(ad, batch, max_seq, cross=None, cache_dtype=None):
+    """A zeroed decode state on the card, its KV cache in `cache_dtype`
+    where given (bf16 by default, as in the reference), and its cross KV
+    set to `cross` (xk, xv; cast to the cache's dtype) where given."""
     kw = {} if cache_dtype is None else {"dtype": cache_dtype}
-    state = ad.init_decode_state(tokens.shape[0], MAX_SEQ, device="cuda",
-                                 **kw)
+    state = ad.init_decode_state(batch, max_seq, device="cuda", **kw)
+    if cross is not None:
+        state["xk"].copy_(cross[0])
+        state["xv"].copy_(cross[1])
+    return state
+
+
+def decode_logits(torch, ad, params, tokens, cache_dtype=None, cross=None):
+    """Logits (b, DECODE_T, V) fp32 of the first DECODE_T tokens of
+    `tokens`, stepped one by one through decode_step from
+    :func:`filled_state`."""
+    state = filled_state(ad, tokens.shape[0], MAX_SEQ, cross, cache_dtype)
     steps = []
     for t in range(DECODE_T):
         lg, state = ad.decode(params, {"tokens": tokens[:, t:t + 1]}, state,
@@ -1362,59 +1470,68 @@ def decode_logits(torch, ad, params, tokens, cache_dtype=None):
     return torch.stack(steps, 1)
 
 
-def prompt_tokens(torch, cfg):
-    """PREFILL_B x PREFILL_S prompt tokens from SEED, on the card."""
+def prompt_tokens(torch, cfg, seq=PREFILL_S):
+    """PREFILL_B x `seq` prompt tokens from SEED, on the card."""
     import numpy as np
     return torch.from_numpy(np.random.default_rng(SEED).integers(
-        1, cfg.vocab, (PREFILL_B, PREFILL_S))).to("cuda")
+        1, cfg.vocab, (PREFILL_B, seq))).to("cuda")
 
 
-def forward_phase(torch, cfg, params) -> dict:
-    """`cfg`'s forward on PREFILL_B x PREFILL_S prompt tokens with the
-    launch counters set to 0 just before and read just after, then timed
-    on the host clock. The prefill path is plain torch ops (the JAX
-    package has no prefill kernel), so it launches none of the port's
-    kernels. Keeps the logits of the first DECODE_T positions, in fp32."""
+def vocab_width(cfg) -> int:
+    """Logit columns: the vocabulary padded as the models pad it."""
+    from repro_torch.distributed.sharding import padded_vocab
+    return padded_vocab(cfg.vocab)
+
+
+def forward_phase(torch, cfg, params, extra=None, seq=PREFILL_S) -> dict:
+    """`cfg`'s forward on PREFILL_B x `seq` prompt tokens (and the family's
+    `extra` inputs) with the launch counters set to 0 just before and read
+    just after, then timed on the host clock. The prefill path is plain
+    torch ops (the JAX package has no prefill kernel), so it launches none
+    of the port's kernels. Keeps the batch, and the logits of the first
+    DECODE_T positions in fp32."""
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
-    tokens = prompt_tokens(torch, cfg)
-    V = params["lm_head"].shape[1]
-    out = {"tokens": tokens}
+    tokens = prompt_tokens(torch, cfg, seq)
+    batch = {"tokens": tokens, **(extra or {})}
+    V = vocab_width(cfg)
+    out = {"tokens": tokens, "batch": batch}
     with torch.inference_mode():
         torch.cuda.synchronize()
         reset_launch_counters()
         t0 = time.perf_counter()
-        logits = ad.forward(params, {"tokens": tokens})
+        logits = ad.forward(params, batch)
         torch.cuda.synchronize()
         out["first_ms"] = (time.perf_counter() - t0) * 1e3
         out["counts"] = {n: c.count for n, c in launch_counters().items()}
         check(not any(out["counts"].values()),
               f"{cfg.name} forward launched {out['counts']}, expected none")
-        check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
+        check(tuple(logits.shape) == (PREFILL_B, seq, V)
               and bool(logits.isfinite().all()),
               f"{cfg.name} forward logits {tuple(logits.shape)} not finite")
         out["logits"] = logits[:, :DECODE_T].float()
         del logits
         t0 = time.perf_counter()
-        ad.forward(params, {"tokens": tokens})
+        ad.forward(params, batch)
         torch.cuda.synchronize()
         out["forward_ms"] = (time.perf_counter() - t0) * 1e3
     return out
 
 
 def decode_against_forward(torch, cfg, params, tokens, fwd_logits,
-                           cache_dtype=None) -> dict:
-    """The first DECODE_T tokens of `tokens` stepped through decode_step,
-    with the launch counters set to 0 just before and read just after
-    (both decode kernels every step), against forward's logits of those
-    positions: max abs difference and argmax agreement."""
+                           cache_dtype=None, cross=None) -> dict:
+    """The first DECODE_T tokens of `tokens` stepped through decode_step
+    (from a cross KV `cross` where given), with the launch counters set to
+    0 just before and read just after (both decode kernels every step),
+    against forward's logits of those positions: max abs difference and
+    argmax agreement."""
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.models.registry import get_adapter
     with torch.inference_mode():
         reset_launch_counters()
         dec = decode_logits(torch, get_adapter(cfg), params, tokens,
-                            cache_dtype)
+                            cache_dtype, cross)
         counts = {n: c.count for n, c in launch_counters().items()}
     check(counts == {n: k * DECODE_T for n, k in per_step(cfg).items()},
           f"{cfg.name} decode against forward launched {counts}, expected "
@@ -1445,6 +1562,12 @@ def dense_fp32_phase(torch, cfg, tokens) -> dict:
     check(out["decode_diff"] <= LOGITS_ATOL,
           f"{cfg.name} fp32 decode differs from forward by "
           f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    rel = out["decode_diff"] / out["max_logit"]
+    check(rel <= CROSS_FP32_RTOL,
+          f"{cfg.name} fp32 decode differs from forward by {rel} of the "
+          f"largest logit (> {CROSS_FP32_RTOL})")
+    print(f"[decode] {cfg.name} fp32: max |decode - forward| logits "
+          f"{rel!r} of max |logit| (tolerance {CROSS_FP32_RTOL})")
     del params, logits
     torch.cuda.empty_cache()
     return out
@@ -1598,6 +1721,12 @@ def zamba2_fp32_phase(torch, cfg, prompts, tokens) -> dict:
     check(out["decode_diff"] <= LOGITS_ATOL,
           f"{cfg.name} fp32 decode differs from forward by "
           f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    rel = out["decode_diff"] / out["max_logit"]
+    check(rel <= CROSS_FP32_RTOL,
+          f"{cfg.name} fp32 decode differs from forward by {rel} of the "
+          f"largest logit (> {CROSS_FP32_RTOL})")
+    print(f"[decode] {cfg.name} fp32: max |decode - forward| logits "
+          f"{rel!r} of max |logit| (tolerance {CROSS_FP32_RTOL})")
     del params, logits
     torch.cuda.empty_cache()
     return out
@@ -1800,19 +1929,19 @@ def rwkv_fp32_phase(torch, cfg, tokens) -> dict:
     return out
 
 
-def forward_breakdown(torch, cfg, params, tokens, kernel_parts=None,
+def forward_breakdown(torch, cfg, params, batch, kernel_parts=None,
                       labels=()) -> dict:
-    """Device time of one forward from torch.profiler, by part
+    """Device time of one forward on `batch` from torch.profiler, by part
     (:func:`op_split`): the port's kernels named in `kernel_parts`, the
-    functions of `labels` ((module, name, part) each, innermost first),
-    the torch.matmul products outside them, and the rest. Each part must
-    have taken device time."""
+    functions of `labels` ((module, name, part) each; the first listed
+    whose range is around a kernel's host op takes it), the torch.matmul
+    products outside them, and the rest. Each part must have taken device
+    time."""
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
     kernel_parts = kernel_parts or {}
     with torch.inference_mode(), labelled(*[(m, n) for m, n, _ in labels]):
-        prof = profile_calls(lambda: ad.forward(params, {"tokens": tokens}),
-                             1, cpu=True)
+        prof = profile_calls(lambda: ad.forward(params, batch), 1, cpu=True)
     split = op_split(prof, 1, kernel_parts,
                      {n: part for _, n, part in labels}, products=True)
     check(all(t > 0 for t in split.values()),
@@ -1853,11 +1982,12 @@ def time_works(works: dict) -> None:
                   f"{w['ops'] / PEAK_OPS_PER_S['float32'] * 1e3!r} ms)")
 
 
-def print_breakdown(name: str, bd: dict, median_ms: float) -> None:
+def print_breakdown(name: str, bd: dict, median_ms: float,
+                    flash: str = "flash_decode") -> None:
     parts = "".join(f"{p} {t!r}, " for p, t in bd.get("parts", {}).items())
     print(f"[profile] {name} decode step device time {bd['device_ms']!r} "
           f"ms: rowstream_matmul {bd['rowstream_ms']!r} "
-          f"({bd['rowstream_kernels']} device kernels per step), flash_decode "
+          f"({bd['rowstream_kernels']} device kernels per step), {flash} "
           f"{bd['flash_ms']!r}, {parts}"
           f"other torch kernels {bd['other_ms']!r}; device idle share at "
           f"the median step {1 - bd['device_ms'] / median_ms!r}")
@@ -1918,7 +2048,7 @@ def zamba2_profiled(torch, z: dict) -> tuple[dict, list]:
     print(f"[bound] zamba2-1.2b decode step, {b['step_bytes']} bytes: bound "
           f"{b['step_ms']!r} ms, device time {bd['device_ms']!r} ms at "
           f"{b['step_ms'] / bd['device_ms']!r} of it")
-    fb = forward_breakdown(torch, cfg, params, zf["tokens"], labels=[
+    fb = forward_breakdown(torch, cfg, params, zf["batch"], labels=[
         (zamba2, "_ssd_scan", "SSD scan"), (zamba2, "_causal_conv", "conv"),
         (layers, "attention_scores", "shared attention")])
     print_split("zamba2-1.2b forward", fb, zf["forward_ms"])
@@ -1930,16 +2060,406 @@ def zamba2_profiled(torch, z: dict) -> tuple[dict, list]:
             rowstream_products(torch, shapes))
 
 
+# --- the cross-attention families: whisper-small, llama-3.2-vision ----------
+
+def cross_cfg(name: str):
+    """whisper-small whole, or llama-3.2-vision at full width with its depth
+    cut to MLLAMA_UNITS pattern units."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    cfg = ALL_ARCHS[name]
+    if name == MLLAMA:
+        cfg = dataclasses.replace(
+            cfg, n_layers=MLLAMA_UNITS * cfg.cross_attn_every)
+    return cfg
+
+
+def cross_params(torch, cfg) -> dict:
+    """init_params, then from SEED + 15 the leaves that init makes
+    constant, so that the checks see them: whisper's biases and LayerNorm
+    shifts N(0, 0.02) and LayerNorm scales 1 + N(0, 0.1); mllama's tanh
+    gates U(0.5, 1.0) (zero gates make every cross layer the identity)."""
+    params = init_params(torch, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def draw(v):
+        return torch.randn(v.shape, generator=gen, device="cuda")
+
+    def walk(tree, ln=False):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, k.startswith("ln_"))
+            elif k.startswith("gate_"):
+                v.copy_(torch.rand(v.shape, generator=gen, device="cuda")
+                        * 0.5 + 0.5)
+            elif ln and k == "w":
+                v.copy_(1 + draw(v) * 0.1)
+            elif cfg.family == "audio" and (ln or k.startswith("b")):
+                v.copy_(draw(v) * 0.02)
+
+    walk(params)
+    return params
+
+
+def cross_inputs(torch, cfg) -> dict:
+    """The stub input of PREFILL_B requests in the model's dtype, N(0, 1)
+    from CROSS_SEED: whisper's frames (b, 1500, 768), mllama's vision
+    embeddings (b, 1601, 8192)."""
+    gen = torch.Generator(device="cuda").manual_seed(CROSS_SEED)
+    name, S = (("frames", cfg.n_audio_frames) if cfg.family == "audio"
+               else ("vision_embeds", cfg.n_vision_tokens))
+    x = torch.randn((PREFILL_B, S, cfg.d_model), generator=gen,
+                    device="cuda")
+    return {name: x.to(getattr(torch, cfg.dtype))}
+
+
+def cross_kv(torch, cfg, params, extra: dict) -> tuple:
+    """(xk, xv) of the stub input: whisper's from its encoder output,
+    mllama's from the vision embeddings (``precompute_cross_kv``)."""
+    from repro_torch.models import mllama, whisper
+    with torch.inference_mode():
+        if cfg.family == "audio":
+            return whisper.precompute_cross_kv(
+                params, cfg, whisper.encode(params, cfg, extra["frames"]))
+        return mllama.precompute_cross_kv(params, cfg,
+                                          extra["vision_embeds"])
+
+
+def cross_weights(cfg, params) -> list:
+    """The decode products' weights in step order: whisper-small's 97 (per
+    layer self q, k, v, o, cross q, o, the MLP's up and down; the tied
+    head, made once by ``whisper.tied_head``), mllama's 67 at two units (a
+    dense layer's seven per self layer; q, o and the SwiGLU's three per
+    cross layer; the head)."""
+    from repro_torch.models import mllama, whisper
+    if cfg.family == "audio":
+        dec = params["decoder"]
+        names = [("attn", w) for w in ("wq", "wk", "wv", "wo")] \
+            + [("xattn", "wq"), ("xattn", "wo"), ("mlp", "w_up"),
+               ("mlp", "w_down")]
+        return [dec[a][w][i] for i in range(cfg.n_layers)
+                for a, w in names] + [whisper.tied_head(params["embed"])]
+    k, n_units = mllama._pattern(cfg)
+    sb, cb = params["self_blocks"], params["cross_blocks"]
+    cross = [("attn", "wq"), ("attn", "wo")] + QWEN_PRODUCTS[4:]
+    out = []
+    for u in range(n_units):
+        out += [sb[a][w][u * (k - 1) + j] for j in range(k - 1)
+                for a, w in QWEN_PRODUCTS]
+        out += [cb[a][w][u] for a, w in cross]
+    return out + [params["lm_head"]]
+
+
+def cross_bounds(cfg, params) -> dict:
+    """Least device times (:func:`bound`) of a decode step at SLOTS slots
+    and of a forward of whisper-small or llama-3.2-vision, as
+    :func:`cell_bounds` gives them for the other families. A step reads
+    every weight it uses once (whisper: the decoder's and the tied
+    embedding as its head; mllama: the self and cross layers' and the
+    head; neither the cross K/V projections, which run once per request,
+    nor an embedding gather) and the SLOTS requests' bf16 cross KV; its
+    operations are 2 per weight a token uses and the cross-attention's two
+    products over all S slots (the self KV, 128 slots, is left out, as in
+    cell_bounds). A forward on PREFILL_B requests (whisper: 448 decoder
+    tokens and 1500 frames; mllama: PREFILL_S tokens and 1601 vision
+    tokens) reads every weight once; its operations are 2 per weight per
+    token through it (the encoder's and the cross K/V projections' frames
+    or vision tokens, the decoder's tokens) and the attention products:
+    the encoder's full, the decoder's causal, the cross over all S."""
+    from repro_torch.models import mllama
+    B, hd, H = PREFILL_B, cfg.resolved_head_dim, cfg.n_heads
+    if cfg.family == "audio":
+        dec = params["decoder"]
+        S, s, kv_heads = cfg.n_audio_frames, cfg.max_target_positions, H
+        n_self = n_cross = cfg.n_layers
+        kv_proj = [dec["xattn"][w] for w in ("wk", "wv", "bv")]
+        other = [dec, params["ln_dec"], params["embed"]]
+        enc = list(_tensors(params["encoder"])) \
+            + list(_tensors(params["ln_enc"]))
+        enc_ops = 2 * B * S * sum(t.numel() for t in enc) \
+            + 4 * B * H * hd * S * S * cfg.encoder_layers
+    else:
+        k, n_cross = mllama._pattern(cfg)
+        S, s, kv_heads = cfg.n_vision_tokens, PREFILL_S, cfg.n_kv_heads
+        n_self = n_cross * (k - 1)
+        cb = params["cross_blocks"]["attn"]
+        kv_proj = [cb["wk"], cb["wv"]]
+        other = [v for key, v in params.items() if key != "embed"]
+        enc, enc_ops = [], 0
+    step_w = [t for v in other
+              for t in (_tensors(v) if isinstance(v, dict) else [v])
+              if not any(t is x for x in kv_proj)]
+    n_w = sum(t.numel() for t in step_w)
+    w_bytes = sum(t.numel() * t.element_size() for t in step_w)
+    kv_bytes = 2 * n_cross * SLOTS * kv_heads * S * hd * 2
+    step_ops = 2 * SLOTS * n_w + 4 * SLOTS * H * S * hd * n_cross
+    step_ms, step_by = bound(w_bytes + kv_bytes, step_ops, "bfloat16")
+    fwd_bytes = sum(t.numel() * t.element_size()
+                    for t in step_w + kv_proj + enc)
+    fwd_ops = enc_ops + 2 * B * s * n_w \
+        + 2 * B * S * sum(t.numel() for t in kv_proj) \
+        + 4 * B * H * hd * s * (s + 1) // 2 * n_self \
+        + 4 * B * H * hd * s * S * n_cross
+    fwd_ms, fwd_by = bound(fwd_bytes, fwd_ops, "bfloat16")
+    print(f"[bound] {cfg.name}: decode step at {SLOTS} slots {w_bytes} bytes "
+          f"of weights and {kv_bytes} of cross KV, {step_ops} operations: "
+          f"{step_ms!r} ms ({step_by}); forward on {B} x {s} tokens and "
+          f"{B} x {S} cross tokens, {fwd_bytes} bytes, {fwd_ops} operations: "
+          f"{fwd_ms!r} ms ({fwd_by})")
+    return {"step_ms": step_ms, "forward_ms": fwd_ms,
+            "step_bytes": w_bytes + kv_bytes, "step_by": step_by,
+            "forward_by": fwd_by}
+
+
+def cross_layer_phase(torch, cfg, params, prompts, cross) -> dict:
+    """One decode step at pos 8, after 8 steps on the kernel path with the
+    cross KV `cross`, layer by layer: each whisper decoder layer, or each
+    mllama self and cross layer, run on the same input and cache through
+    the kernel path and the plain path. Each output is held to 3e-2 of
+    its largest magnitude (the bound of rwkv_forward_phase)."""
+    from repro_torch.models import mllama, transformer, whisper
+    from repro_torch.models.registry import get_adapter
+    state, tok = fed_steps(torch, get_adapter(cfg), params, prompts, SLOTS,
+                           MAX_SEQ, cross=cross)
+    worst = {}
+
+    def both(step, i=None):
+        """`step`(kc, vc) on both paths, on copies of self layer i's
+        caches."""
+        outs = []
+        for ctx in (contextlib.nullcontext, plain_path):
+            kv = (None, None) if i is None else \
+                (state["k"][i].clone(), state["v"][i].clone())
+            with ctx():
+                outs.append(step(*kv))
+        return outs
+
+    def held(what, i, got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(err <= 3e-2 * scale,
+              f"{cfg.name} {what} layer {i}: kernel and plain paths differ "
+              f"by {err} on the same input (largest |output| {scale})")
+        worst[what] = max(worst.get(what, 0.0), err / scale)
+        return got
+
+    xk, xv = state["xk"], state["xv"]
+    with torch.inference_mode():
+        h = params["embed"][tok]
+        if cfg.family == "audio":
+            posb = torch.full((SLOTS, 1), 8, dtype=torch.int32,
+                              device="cuda")
+            h = h + whisper.sinusoid_pos(posb, cfg.d_model).to(h.dtype)
+            for i in range(cfg.n_layers):
+                bp = whisper._index(params["decoder"], i)
+                h = held("decoder", i, *both(
+                    lambda kc, vc: whisper.dec_block_step(
+                        cfg, h, bp, kc, vc, xk[i], xv[i], 8), i))
+        else:
+            k, n_units = mllama._pattern(cfg)
+            for u in range(n_units):
+                for j in range(k - 1):
+                    i = u * (k - 1) + j
+                    bp = mllama._index(params["self_blocks"], i)
+                    h = held("self", i, *both(
+                        lambda kc, vc: transformer.block_decode(
+                            cfg, h, bp, kc, vc, 8, 8), i))
+                bp = mllama._index(params["cross_blocks"], u)
+                h = held("cross", u, *both(
+                    lambda *_: mllama._cross_decode(cfg, h, bp, xk[u],
+                                                    xv[u])))
+    print(f"[logits] {cfg.name} bf16: each layer of the step at pos 8 on the "
+          f"same input, the cross KV filled, kernel against plain path, max "
+          f"err / max |output|: {worst!r} (tolerance 3e-2)")
+    return worst
+
+
+def cross_fp32_phase(torch, cfg, tokens) -> dict:
+    """`cfg` in fp32, random weights from the same seed: the first
+    DECODE_T tokens of one prompt through decode_step, with an fp32 KV
+    cache and the cross KV precomputed from the same stub input, against
+    forward's logits, within LOGITS_ATOL and within CROSS_FP32_RTOL of
+    the largest logit."""
+    from repro_torch.models.registry import get_adapter
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = cross_params(torch, cfg32)
+    extra = {n: x[:1] for n, x in cross_inputs(torch, cfg32).items()}
+    tokens = tokens[:1, :DECODE_T]
+    with torch.inference_mode():
+        logits = get_adapter(cfg32).forward(params, {"tokens": tokens,
+                                                     **extra})
+    out = decode_against_forward(torch, cfg32, params, tokens,
+                                 logits.float(), torch.float32,
+                                 cross_kv(torch, cfg32, params, extra))
+    check(out["decode_diff"] <= LOGITS_ATOL,
+          f"{cfg.name} fp32 decode differs from forward by "
+          f"{out['decode_diff']} (> {LOGITS_ATOL})")
+    rel = out["decode_diff"] / out["max_logit"]
+    check(rel <= CROSS_FP32_RTOL,
+          f"{cfg.name} fp32 decode differs from forward by {rel} of the "
+          f"largest logit (> {CROSS_FP32_RTOL})")
+    print(f"[decode] {cfg.name} fp32: max |decode - forward| logits "
+          f"{rel!r} of max |logit| (tolerance {CROSS_FP32_RTOL})")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_phase(torch, name: str) -> dict:
+    """whisper-small or llama-3.2-vision (at MLLAMA_UNITS units) in bf16,
+    everything timed on the host clock or with CUDA events: its bounds;
+    served with the driver's defaults (the launch counters set to 0 just
+    before and read just after; the cross KV stays zero, as the reference
+    driver leaves it), the same requests on the plain path; each layer of
+    one step with the cross KV of the stub input against the plain path;
+    the CUDA-event wall time of the step's products; whisper's encoder on
+    PREFILL_B x 1500 frames; the forward (PREFILL_B x 448 tokens with the
+    frames, or PREFILL_B x PREFILL_S with 1601 vision embeddings each);
+    then in fp32 decode against forward."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.models import whisper
+    cfg = cross_cfg(name)
+    if name == MLLAMA:
+        full = ALL_ARCHS[name]
+        k = cfg.cross_attn_every
+        print(f"[depth] {name}: {full.n_layers} layers ({full.n_layers // k} "
+              f"units of {k - 1} self + 1 cross) cut to {cfg.n_layers} "
+              f"({MLLAMA_UNITS} units: {MLLAMA_UNITS * (k - 1)} self, "
+              f"{MLLAMA_UNITS} cross) at full width (d_model {cfg.d_model}, "
+              f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads of "
+              f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}):"
+              f" the whole model does not fit one 80 GB card in bf16")
+    params = cross_params(torch, cfg)
+    c = {"cfg": cfg, "bound": cross_bounds(cfg, params)}
+    sv = c["serve"] = serve_phase(torch, cfg, params, per_step(cfg))
+    print_serve(name, sv)
+    prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                        key=lambda r: r.rid)]
+    plain_agreement(torch, cfg, params, sv)
+    extra = cross_inputs(torch, cfg)
+    cross_layer_phase(torch, cfg, params, prompts,
+                      cross_kv(torch, cfg, params, extra))
+    c["rm_wall_ms"] = timed_ms(rowstream_work(
+        torch, cross_weights(cfg, params), SLOTS)["kernel"], 5)
+    seq = PREFILL_S
+    if cfg.family == "audio":
+        seq = cfg.max_target_positions
+        with torch.inference_mode():
+            whisper.encode(params, cfg, extra["frames"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = whisper.encode(params, cfg, extra["frames"])
+            torch.cuda.synchronize()
+            c["encode_ms"] = (time.perf_counter() - t0) * 1e3
+        check(tuple(enc.shape) == tuple(extra["frames"].shape)
+              and bool(enc.isfinite().all()),
+              f"whisper encoder output {tuple(enc.shape)} not finite")
+        print(f"[forward] {name} bf16 encoder, {PREFILL_B} x "
+              f"{cfg.n_audio_frames} frames: host time {c['encode_ms']!r} ms")
+        del enc
+    cf = c["forward"] = forward_phase(torch, cfg, params, extra, seq)
+    print_forward(name, cf)
+    del params, cf["logits"]
+    torch.cuda.empty_cache()
+    c32 = cross_fp32_phase(torch, cfg, cf["tokens"])
+    print_decode(f"{name} fp32 (fp32 cache, cross KV filled)", c32)
+    return c
+
+
+@contextlib.contextmanager
+def whisper_attention_told_apart(whisper):
+    """For a profile of whisper's forward (a measurement only): route
+    ``whisper._attn`` through two module attributes made for the duration,
+    ``_causal_attn`` for the decoder's causal self-attention and
+    ``_full_attn`` for the rest (the encoder's self-attention and the
+    decoder's cross-attention), so that :func:`labelled` can label each.
+    Listed after ``encode``, ``_full_attn`` then takes the decoder's
+    cross-attention alone."""
+    attn = whisper._attn
+    whisper._causal_attn = whisper._full_attn = attn
+
+    def route(*args, **kwargs):
+        fn = whisper._causal_attn if kwargs.get("causal") \
+            else whisper._full_attn
+        return fn(*args, **kwargs)
+
+    whisper._attn = route
+    try:
+        yield
+    finally:
+        whisper._attn = attn
+        del whisper._causal_attn, whisper._full_attn
+
+
+def cross_profiled(torch, c: dict) -> dict:
+    """The profiled parts of :func:`cross_phase`'s model, on weights made
+    again from the same seed: the step's rowstream_matmul launches and
+    the cross flash_decode launches at the path's shape (kernel, plain
+    version, library call), the profiled split of a decode step (self and
+    cross flash_decode told apart by a labelled range around the cross
+    call) and of the forward, and one line per distinct product shape (the
+    tied head's (768, 51968) among whisper's)."""
+    from repro_torch.models import mllama, transformer, whisper
+    cfg, sv, cf = c["cfg"], c["serve"], c["forward"]
+    audio = cfg.family == "audio"
+    mod = whisper if audio else mllama
+    params = cross_params(torch, cfg)
+    name = f"rowstream_matmul on {cfg.name}"
+    works = {name: rowstream_work(torch, cross_weights(cfg, params), SLOTS)}
+    works[name].update(per=f"one {cfg.name} decode step at {SLOTS} slots",
+                       wall_ms=c["rm_wall_ms"])
+    k, n_cross = (1, cfg.n_layers) if audio else mllama._pattern(cfg)
+    S = cfg.n_audio_frames if audio else cfg.n_vision_tokens
+    works[f"cross flash_decode on {cfg.name}"] = flash_work(
+        torch, dataclasses.replace(cfg, n_layers=n_cross), SLOTS, S)
+    time_works(works)
+    cross = (mod, "cross_decode_attention", "cross flash_decode")
+    bd = step_breakdown(torch, cfg, params,
+                        per_step(cfg)["rowstream_matmul"], labels=[cross],
+                        claims=("cross_decode_attention",))
+    check(bd["claimed"] == {"cross flash_decode": n_cross},
+          f"{cfg.name} step: {bd['claimed']} flash_decode kernels a step "
+          f"inside the cross-attention's range, expected {n_cross}")
+    print_breakdown(cfg.name, bd, sv["median_step_ms"],
+                    flash="self flash_decode")
+    b = c["bound"]
+    print(f"[bound] {cfg.name} decode step, {b['step_bytes']} bytes: bound "
+          f"{b['step_ms']!r} ms, device time {bd['device_ms']!r} ms at "
+          f"{b['step_ms'] / bd['device_ms']!r} of it")
+    if audio:
+        labels = [(whisper, "encode", "encoder"),
+                  (whisper, "_full_attn", "cross-attention"),
+                  (whisper, "_causal_attn", "decoder self-attention")]
+        with whisper_attention_told_apart(whisper):
+            fb = forward_breakdown(torch, cfg, params, cf["batch"],
+                                   labels=labels)
+    else:
+        fb = forward_breakdown(torch, cfg, params, cf["batch"], labels=[
+            (mllama, "cross_attention", "cross-attention"),
+            (transformer, "self_attention", "self-attention")])
+    print_split(f"{cfg.name} forward", fb, cf["forward_ms"])
+    print(f"[bound] {cfg.name} forward: bound {b['forward_ms']!r} ms, device "
+          f"time {fb['device']!r} ms at {b['forward_ms'] / fb['device']!r} "
+          f"of it")
+    shapes = list(dict.fromkeys(tuple(w.shape)
+                                for w in cross_weights(cfg, params)))
+    del params
+    torch.cuda.empty_cache()
+    return {"works": {n: numbers(w) for n, w in works.items()},
+            "products": rowstream_products(torch, shapes),
+            "step": bd, "forward": fb}
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
-                                       "rwkv_scan", "zamba2"],
+                                       "rwkv_scan", "zamba2", "whisper",
+                                       "mllama"],
                     help="run only this kernel's phase (the card line, its "
-                         "build, its checks and its timings) or zamba2's "
-                         "phases (all kernels built and checked); no ok "
-                         "line")
+                         "build, its checks and its timings) or this "
+                         "model's phases (all kernels built and checked); "
+                         "no ok line")
     ap.add_argument("--baseline", action="store_true",
                     help="with --only rowstream_matmul or rwkv_scan: the "
                          "tree's kernel predates its redesign; time its "
@@ -1965,7 +2485,7 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
-    names = build.KERNELS if args.only in (None, "zamba2") \
+    names = build.KERNELS if args.only in MODEL_ONLY \
         else (args.only,)
     t0 = time.perf_counter()
     logs = build.build(names)
@@ -2008,6 +2528,13 @@ def main(argv=None) -> int:
         works, products = zamba2_profiled(torch, z)
         print(json.dumps({"zamba2": {"works": works, "products": products,
                                      "pool": z["pool"]}}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
+        print(card)
+        return 0
+    if args.only in ("whisper", "mllama"):
+        name = {"whisper": WHISPER, "mllama": MLLAMA}[args.only]
+        c = cross_phase(torch, name)
+        print(json.dumps({name: cross_profiled(torch, c)}))
         print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
@@ -2062,6 +2589,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     z = zamba2_phase(torch)
+    cross = {name: cross_phase(torch, name) for name in (WHISPER, MLLAMA)}
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -2097,7 +2625,7 @@ def main(argv=None) -> int:
     works["rowstream_matmul on rwkv6-3b"]["per"] = \
         f"one rwkv6-3b decode step at {SLOTS} slots"
     time_works(works)     # CUDA-event walls first, then the profiler
-    fb = forward_breakdown(torch, rcfg, params, pf["tokens"],
+    fb = forward_breakdown(torch, rcfg, params, {"tokens": pf["tokens"]},
                            {"rwkv_scan": RS_KERNELS})
     print_split("rwkv6-3b forward", fb, pf["forward_ms"])
     rbd = step_breakdown(torch, rcfg, params,
@@ -2122,7 +2650,7 @@ def main(argv=None) -> int:
     qbd = step_breakdown(torch, qcfg, params,
                          per_step(qcfg)["rowstream_matmul"])
     print_breakdown("qwen2-7b", qbd, sv["median_step_ms"])
-    qfb = forward_breakdown(torch, qcfg, params, qf["tokens"],
+    qfb = forward_breakdown(torch, qcfg, params, qf["batch"],
                             labels=[attention])
     print_split("qwen2-7b forward", qfb, qf["forward_ms"])
     works.update((name, numbers(w)) for name, w in qworks.items())
@@ -2135,7 +2663,7 @@ def main(argv=None) -> int:
                          per_step(gcfg)["rowstream_matmul"],
                          labels=[experts])
     print_breakdown("granite-moe-3b", gbd, gs["median_step_ms"])
-    gfb = forward_breakdown(torch, gcfg, params, gf["tokens"], labels=[
+    gfb = forward_breakdown(torch, gcfg, params, gf["batch"], labels=[
         experts, (moe, "moe_ffn", "routing, dispatch and combine"),
         attention])
     print_split("granite-moe-3b forward", gfb, gf["forward_ms"])
@@ -2149,6 +2677,7 @@ def main(argv=None) -> int:
 
     zworks, zproducts = zamba2_profiled(torch, z)
     works.update(zworks)
+    cross_prof = {name: cross_profiled(torch, c) for name, c in cross.items()}
     long_fd = flash_phase(FD_LENGTHS[1:])
     check_rowstream_launches(torch, dev)
 
@@ -2159,7 +2688,11 @@ def main(argv=None) -> int:
              "rwkv6-3b forward": pf["counts"],
              "rwkv6-3b serve": rs["counts"],
              "zamba2 serve": z["serve"]["counts"],
-             "zamba2 forward": z["forward"]["counts"]}
+             "zamba2 forward": z["forward"]["counts"],
+             "whisper-small serve": cross[WHISPER]["serve"]["counts"],
+             "whisper-small forward": cross[WHISPER]["forward"]["counts"],
+             "llama-3.2-vision serve": cross[MLLAMA]["serve"]["counts"],
+             "llama-3.2-vision forward": cross[MLLAMA]["forward"]["counts"]}
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
                 "rowstream_matmul":
                     "src/repro/kernels/rowstream_matmul/kernel.py:49",
@@ -2183,9 +2716,14 @@ def main(argv=None) -> int:
                 "rowstream_matmul on zamba2-1.2b"]
             entry["zamba2_products"] = zproducts
             entry["granite_step_bound_ms"] = gbound_ms
+            for m, cp in cross_prof.items():
+                entry[f"on_{m}_step"] = cp["works"][f"{name} on {m}"]
+                entry[f"{m}_products"] = cp["products"]
         if name == "flash_decode":
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
+            for m, cp in cross_prof.items():
+                entry[f"cross_on_{m}"] = cp["works"][f"cross {name} on {m}"]
         kernels.append(entry)
     print(f"[run] {time.perf_counter() - t_start:.0f} s from the card line "
           f"to the kernels line")
@@ -2217,6 +2755,20 @@ def init_params(torch, cfg) -> dict:
 
 def per_step(cfg) -> dict:
     """Each kernel's launches in one decode step of `cfg`."""
+    if cfg.family == "audio":
+        # Per layer self q, k, v, o, cross q, o and the MLP's up and down;
+        # a self and a cross flash_decode; plus the tied head.
+        return {"flash_decode": 2 * cfg.n_layers,
+                "rowstream_matmul": 8 * cfg.n_layers + 1, "rwkv_scan": 0}
+    if cfg.family == "vlm":
+        # A dense layer's seven per self layer; q, o and the SwiGLU's three
+        # per cross layer (its K/V are precomputed); plus the head.
+        from repro_torch.models import mllama
+        k, n_units = mllama._pattern(cfg)
+        n_self = n_units * (k - 1)
+        return {"flash_decode": n_self + n_units,
+                "rowstream_matmul": 7 * n_self + 5 * n_units + 1,
+                "rwkv_scan": 0}
     rm = RM_PER_LAYER[cfg.name] * cfg.n_layers + 1
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2
@@ -2231,7 +2783,8 @@ def per_step(cfg) -> dict:
 
 
 def print_forward(name: str, f: dict) -> None:
-    print(f"[forward] {name} bf16, {PREFILL_B} x {PREFILL_S} tokens: "
+    b, seq = f["tokens"].shape
+    print(f"[forward] {name} bf16, {b} x {seq} tokens: "
           f"launches {f['counts']}; host time {f['forward_ms']!r} ms (first "
           f"call {f['first_ms']!r} ms)")
 

@@ -7,8 +7,10 @@ packages build the same shapes from the same config. The SSM family's
 rwkv6 reads no field beyond the dense ones (its head count is
 ``d_model // 64``), and the dense part of ``reduced`` is also the
 reference's reduced rwkv6. The hybrid family (zamba2) adds
-:class:`SSMConfig` and ``shared_attn_every``. A slice that ports another
-family (vlm, audio) adds that family's fields.
+:class:`SSMConfig` and ``shared_attn_every``; the vlm family (mllama)
+``cross_attn_every`` and ``n_vision_tokens``; the audio family (whisper)
+``encoder_layers``, ``n_audio_frames``, ``max_target_positions`` and
+``tie_embeddings``.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense, moe, ssm or hybrid (those ported)
+    family: str                   # dense | ssm | hybrid | vlm | audio | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,10 +52,18 @@ class ArchConfig:
     sliding_window: Optional[int] = None    # SWA (h2o-danube: 4096)
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one shared attention block applied every k SSM blocks
     shared_attn_every: Optional[int] = None
+    # vlm (mllama): one cross-attention block every k self-attention blocks
+    cross_attn_every: Optional[int] = None
+    n_vision_tokens: int = 1601             # stub patch-embedding count
+    # audio (whisper): encoder-decoder
+    encoder_layers: int = 0
+    n_audio_frames: int = 1500              # stub frame-embedding count
+    max_target_positions: int = 448
     dtype: str = "bfloat16"
     # provenance
     source: str = ""
@@ -62,19 +72,26 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """A tiny same-family config for CPU smoke tests (the dense, MoE, SSM
-    and hybrid cases of the reference's ``reduced``: same shapes for the
-    same config)."""
+    """A tiny same-family config for CPU smoke tests (the reference's
+    ``reduced``: same shapes for the same config)."""
     base = dict(
-        n_layers=max(2, (cfg.shared_attn_every or 1) + 1),
+        n_layers=max(2, (cfg.shared_attn_every or cfg.cross_attn_every
+                         or 1) + 1),
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2),
         d_ff=128,
         vocab=256,
         head_dim=16,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        n_vision_tokens=16 if cfg.family == "vlm" else cfg.n_vision_tokens,
+        n_audio_frames=16 if cfg.family == "audio" else cfg.n_audio_frames,
     )
     if cfg.moe:
         base["moe"] = MoEConfig(n_experts=min(cfg.moe.n_experts, 8),
@@ -87,5 +104,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     if cfg.shared_attn_every:
         base["shared_attn_every"] = 2
         base["n_layers"] = 5
+    if cfg.cross_attn_every:
+        base["cross_attn_every"] = 2
+        base["n_layers"] = 4
     base.update(overrides)
     return dataclasses.replace(cfg, **base)

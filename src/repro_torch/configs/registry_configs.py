@@ -1,8 +1,11 @@
-"""Arch-id -> ArchConfig registry of the port: the dense and MoE configs
-run by ``models/transformer``, the SSM config run by ``models/rwkv6`` and
-the hybrid config run by ``models/zamba2``."""
-from . import (granite_moe_3b, h2o_danube_1_8b, minitron_8b, phi35_moe_42b,
-               qwen2_7b, qwen3_14b, rwkv6_3b, zamba2_1_2b)
+"""Arch-id -> ArchConfig registry of the port (the 10 assigned
+architectures): the dense and MoE configs run by ``models/transformer``,
+the SSM config by ``models/rwkv6``, the hybrid config by ``models/zamba2``,
+the vlm config by ``models/mllama`` and the audio config by
+``models/whisper``."""
+from . import (granite_moe_3b, h2o_danube_1_8b, llama32_vision_90b,
+               minitron_8b, phi35_moe_42b, qwen2_7b, qwen3_14b, rwkv6_3b,
+               whisper_small, zamba2_1_2b)
 
 ALL_ARCHS = {
     "qwen2-7b": qwen2_7b.CONFIG,
@@ -11,6 +14,8 @@ ALL_ARCHS = {
     "qwen3-14b": qwen3_14b.CONFIG,
     "rwkv6-3b": rwkv6_3b.CONFIG,
     "zamba2-1.2b": zamba2_1_2b.CONFIG,
+    "llama-3.2-vision-90b": llama32_vision_90b.CONFIG,
+    "whisper-small": whisper_small.CONFIG,
     "granite-moe-3b-a800m": granite_moe_3b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi35_moe_42b.CONFIG,
 }

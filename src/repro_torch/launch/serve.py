@@ -7,20 +7,28 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --reduced --device cpu
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device``. It serves the dense and MoE families (a KV cache), rwkv6 (a
-recurrent state) and zamba2 (SSM states and conv tails, plus a KV cache
-for each application of its shared attention block) through the same
+recurrent state), zamba2 (SSM states and conv tails, plus a KV cache
+for each application of its shared attention block), llama-3.2-vision and
+whisper-small (a KV cache plus a cross KV) through the same
 loop, and reproduces the reference's behaviour exactly, including its
-quirks: only ``req.prompt[0]`` is fed at admission; every slot decodes at
+quirks: it never calls ``precompute_cross_kv`` and passes no vision
+embeddings or audio frames, so the cross KV of mllama and whisper stays
+zero and each cross-attention attends uniformly over zeros (whisper's
+then adds only its output bias); only ``req.prompt[0]`` is fed at
+admission; every slot decodes at
 one shared host-side ``pos`` that clamps at ``max_seq - 1``; nothing is
 cleared when a slot is reused, so a request admitted into it attends to
 the KV its predecessor left there, or carries on from its predecessor's
 recurrent, SSM and conv state; and the closing KV-bytes line uses
 ``n_kv_heads`` and the head dim also for rwkv6, which has no KV cache,
 and all ``n_layers`` for zamba2, whose KV cache has one layer per shared
-application.
+application, and for llama-3.2-vision, whose cross layers keep no self
+KV.
 ``pos`` stays a host int, so a step reads nothing back from the device but
 the sampled tokens.
 """
@@ -68,8 +76,9 @@ class ServeRun:
 def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
           device) -> ServeRun:
     """Answer ``requests`` with greedy decoding over ``slots`` batch slots
-    on ``device``, with a ``max_seq`` KV cache (dense, MoE), a recurrent
-    state (rwkv6) or both (zamba2). Each step's time is taken on
+    on ``device``, with a ``max_seq`` KV cache (dense, MoE; plus the
+    never-filled cross KV of vlm and audio), a recurrent state (rwkv6) or
+    both (zamba2). Each step's time is taken on
     the host clock after the sampled tokens reach the host, so it includes
     the device's work."""
     device = resolve_device(device)

@@ -1,6 +1,6 @@
 """Shared model layers: norms, rotary embeddings, masks, GQA projection,
-full-sequence and cached decode attention, SwiGLU and the dense
-initializer.
+full-sequence, cross and cached decode attention, SwiGLU and GELU FFNs and
+the dense initializer.
 
 The PyTorch counterpart of ``repro.models.layers``, function for function,
 with the same cast order so that bf16 rounds at the same places. At decode
@@ -8,8 +8,11 @@ every weight product goes through the row-stream matmul kernel and the
 cached attention through the flash-decode kernel; their wrappers launch
 the CUDA kernels for CUDA tensors and run the plain versions for CPU
 tensors. The JAX package has no prefill kernel, so the full-sequence path
-(``self_attention``) is plain torch ops: the products take ``mm``,
-``torch.matmul`` over all rows of a prompt.
+(``self_attention``, ``cross_attention``) is plain torch ops: the products
+take ``mm``, ``torch.matmul`` over all rows of a prompt. A decode step's
+cross-attention against a KV computed once per request (vision patches,
+encoder output) also goes through the flash-decode kernel
+(``cross_decode_attention``).
 """
 from __future__ import annotations
 
@@ -46,6 +49,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Normalise in fp32 by the mean and the population variance (jnp.var),
+    cast back to x's dtype, then scale by w and shift by b in that
+    dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +224,53 @@ def self_attention(params: dict, x: torch.Tensor, cfg,
     return mm(out, params["wo"])
 
 
+def cross_attention(params: dict, x: torch.Tensor, kv_input: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Full-sequence cross-attention (prefill path): queries from `x`
+    (b, s, d), keys and values from `kv_input` (b, s_kv, d), no RoPE, no
+    mask, products through torch.matmul. Queries of s >=
+    CHUNKED_ATTN_THRESHOLD are taken Q_CHUNK at a time, padded to whole
+    blocks, as the reference's q-block map does: the unblocked (s x s_kv)
+    fp32 logits grow with s."""
+    b, s, _ = x.shape
+    mm = torch.matmul
+    hd = cfg.resolved_head_dim
+    skv = kv_input.shape[1]
+    q = mm(x, params["wq"]).reshape(b, s, -1, hd).transpose(1, 2)
+    k = mm(kv_input, params["wk"]).reshape(b, skv, -1, hd).transpose(1, 2)
+    v = mm(kv_input, params["wv"]).reshape(b, skv, -1, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    n_rep = q.shape[1] // k.shape[1]
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    if s >= CHUNKED_ATTN_THRESHOLD:
+        nq = -(-s // Q_CHUNK)
+        qp = F.pad(q, (0, 0, 0, nq * Q_CHUNK - s))
+        out = torch.cat([attention_scores(
+            qp[:, :, i * Q_CHUNK:(i + 1) * Q_CHUNK], k, v, None)
+            for i in range(nq)], dim=2)[:, :, :s]
+    else:
+        out = attention_scores(q, k, v, None)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return mm(out, params["wo"])
+
+
+def cross_decode_attention(q: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor) -> torch.Tensor:
+    """One query token against a cross KV computed once per request.
+    q: (b, h, 1, hd); xk/xv: (b, h_kv, S, hd), every slot valid. Returns
+    (b, h, 1, hd) in q's dtype, through the flash-decode kernel at
+    pos = S - 1. The reference's ``attention_scores`` casts the
+    probabilities to the cache's dtype before the second product; the
+    kernel keeps them in fp32, so a bf16 cache agrees to bf16 rounding and
+    an fp32 one to fp32 rounding."""
+    b, hq, _, hd = q.shape
+    out = flash_decode(q.reshape(b, hq, hd).contiguous(), xk, xv,
+                       xk.shape[2] - 1)
+    return out.reshape(b, hq, 1, hd)
+
+
 def _cached_attention_local(q, k_new, v_new, kc, vc, pos: int,
                             slot: int) -> torch.Tensor:
     """Single-shard cached attention: write the new token's K/V at
@@ -256,6 +317,15 @@ def swiglu(params: dict, x: torch.Tensor, mm=matmul) -> torch.Tensor:
     """SwiGLU FFN; `mm` is the product."""
     return mm(F.silu(mm(x, params["w_gate"])) * mm(x, params["w_up"]),
               params["w_down"])
+
+
+def gelu_mlp(params: dict, x: torch.Tensor, mm=matmul) -> torch.Tensor:
+    """Biased GELU MLP with the tanh approximation (``jax.nn.gelu``'s
+    default; torch's default is the exact erf form); `mm` is the
+    product."""
+    return mm(F.gelu(mm(x, params["w_up"]) + params["b_up"],
+                     approximate="tanh"), params["w_down"]) \
+        + params["b_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,194 @@
+"""Llama-3.2-Vision backbone: a dense GQA decoder with a cross-attention
+layer after every ``cross_attn_every - 1`` self-attention layers (pattern
+unit = (cross_attn_every - 1) self layers + 1 cross layer).
+
+The PyTorch counterpart of ``repro.models.mllama``, function for function,
+with the same cast order. The vision frontend is a stub, as in the
+reference: callers give precomputed patch embeddings
+(b, n_vision_tokens, d_model). The cross layers attend to them and gate
+their attention and FFN contributions with fp32 scalar tanh gates (zero at
+init); the gate is taken in fp32, cast to the residual's dtype, then
+multiplied.
+
+A self layer is the dense transformer's block (``transformer._block_forward``
+at prefill, ``transformer.block_decode`` at decode). ``forward`` (prefill)
+is plain torch ops with torch.matmul products: the JAX package has no
+prefill kernel. In ``decode_step`` every weight product goes through
+``layers.matmul`` (the row-stream kernel), the self-attention through
+``layers.decode_attention`` and the cross-attention against the cached
+vision KV through ``layers.cross_decode_attention``, so both through the
+flash-decode kernel. ``precompute_cross_kv`` fills that KV once per
+request; the serve driver, as the reference's, never calls it.
+
+Parameters are a dict of tensors with the reference's structure: stacked
+``self_blocks`` (n_units * (k - 1), ...) and ``cross_blocks`` (n_units,
+...), the gates stacked as (n_units,) fp32. The reference's ``remat``
+option waits for the training slice, its ``param_specs``/``cache_specs``
+for the distributed one.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..distributed.sharding import padded_vocab
+from .layers import (attn_params, cross_attention, cross_decode_attention,
+                     dense_init, ffn_params, matmul, rmsnorm, swiglu)
+from .transformer import (_block_forward, _dtype, _index, _stack,
+                          block_decode)
+
+
+def _pattern(cfg) -> tuple[int, int]:
+    """(k, n_units): k layers a pattern unit, the last of them cross."""
+    k = cfg.cross_attn_every
+    return k, cfg.n_layers // k
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _self_block_init(gen: torch.Generator, cfg, dt) -> dict:
+    dev = gen.device
+    return {
+        "attn": attn_params(gen, cfg, cfg.n_heads, cfg.n_kv_heads, dt),
+        "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "ffn": ffn_params(gen, cfg.d_model, cfg.d_ff, dt),
+        "ffn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+def _cross_block_init(gen: torch.Generator, cfg, dt) -> dict:
+    p = _self_block_init(gen, cfg, dt)
+    p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+    p["gate_ffn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def init(cfg, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen``'s device with the reference's structure
+    and scales: normal/sqrt(fan_in) projections, the embedding at 0.02,
+    unit norms, zero fp32 gates."""
+    dt = _dtype(cfg)
+    k, n_units = _pattern(cfg)
+    V = padded_vocab(cfg.vocab)
+    embed = dense_init(gen, (V, cfg.d_model), dt, scale=0.02)
+    self_blocks = _stack([_self_block_init(gen, cfg, dt)
+                          for _ in range(n_units * (k - 1))])
+    cross_blocks = _stack([_cross_block_init(gen, cfg, dt)
+                           for _ in range(n_units)])
+    return {
+        "embed": embed,
+        "self_blocks": self_blocks,
+        "cross_blocks": cross_blocks,
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
+        "lm_head": dense_init(gen, (cfg.d_model, V), dt),
+    }
+
+
+def _gate(gate: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """tanh of an fp32 gate, cast to h's dtype (the reference's order)."""
+    return torch.tanh(gate).to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _cross_fwd(cfg, h: torch.Tensor, bp: dict,
+               vision: torch.Tensor) -> torch.Tensor:
+    a = cross_attention(bp["attn"], rmsnorm(h, bp["attn_norm"], cfg.norm_eps),
+                        vision, cfg)
+    h = h + _gate(bp["gate_attn"], h) * a
+    f = swiglu(bp["ffn"], rmsnorm(h, bp["ffn_norm"], cfg.norm_eps),
+               torch.matmul)
+    return h + _gate(bp["gate_ffn"], h) * f
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            vision_embeds: torch.Tensor) -> torch.Tensor:
+    """tokens: (b, s); vision_embeds: (b, n_vis, d_model) -> logits
+    (b, s, V_padded)."""
+    b, s = tokens.shape
+    k, n_units = _pattern(cfg)
+    h = params["embed"][tokens]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    for u in range(n_units):
+        for j in range(k - 1):
+            h = _block_forward(cfg, h, _index(params["self_blocks"],
+                                              u * (k - 1) + j), positions)
+        h = _cross_fwd(cfg, h, _index(params["cross_blocks"], u),
+                       vision_embeds)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return torch.matmul(h, params["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Zeroed stacked caches: self KV (n_self, b, h_kv, max_seq, hd) and
+    cross KV (n_units, b, h_kv, n_vision_tokens, hd). bf16 by default, also
+    for an fp32 model, as in the reference."""
+    k, n_units = _pattern(cfg)
+    hd = cfg.resolved_head_dim
+    self_shape = (n_units * (k - 1), batch, cfg.n_kv_heads, max_seq, hd)
+    cross_shape = (n_units, batch, cfg.n_kv_heads, cfg.n_vision_tokens, hd)
+    return {"k": torch.zeros(self_shape, dtype=dtype, device=device),
+            "v": torch.zeros(self_shape, dtype=dtype, device=device),
+            "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
+            "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+
+
+def precompute_cross_kv(params: dict, cfg,
+                        vision_embeds: torch.Tensor) -> tuple:
+    """Each cross layer's K and V of the vision embeddings, stacked:
+    (n_units, b, h_kv, n_vis, hd) each, in the projection's dtype (the
+    caller writes them into a cache of its own dtype)."""
+    hd = cfg.resolved_head_dim
+    b, nv, _ = vision_embeds.shape
+    cross = params["cross_blocks"]
+    ks, vs = [], []
+    for u in range(cross["attn_norm"].shape[0]):
+        a = _index(cross, u)["attn"]
+        ks.append(torch.matmul(vision_embeds, a["wk"]).reshape(
+            b, nv, -1, hd).transpose(1, 2))
+        vs.append(torch.matmul(vision_embeds, a["wv"]).reshape(
+            b, nv, -1, hd).transpose(1, 2))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_decode(cfg, h: torch.Tensor, bp: dict, xk: torch.Tensor,
+                  xv: torch.Tensor) -> torch.Tensor:
+    """Single-token cross layer against the cached vision KV. As in the
+    reference, no qk_norm is applied here (``cross_attention`` applies
+    it; no vlm config sets it)."""
+    b = h.shape[0]
+    hd = cfg.resolved_head_dim
+    x = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
+    q = matmul(x, bp["attn"]["wq"]).reshape(b, 1, -1, hd).transpose(1, 2)
+    out = cross_decode_attention(q, xk, xv).transpose(1, 2).reshape(
+        b, 1, -1)
+    a = matmul(out, bp["attn"]["wo"])
+    h = h + _gate(bp["gate_attn"], h) * a
+    f = swiglu(bp["ffn"], rmsnorm(h, bp["ffn_norm"], cfg.norm_eps))
+    return h + _gate(bp["gate_ffn"], h) * f
+
+
+def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
+                pos: int) -> tuple:
+    """token: (b, 1) int; pos: host int. Returns (logits (b, 1, V_padded),
+    cache); the self KV is written in place, the cross KV only read."""
+    k, n_units = _pattern(cfg)
+    h = params["embed"][token]
+    for u in range(n_units):
+        for j in range(k - 1):
+            i = u * (k - 1) + j
+            h = block_decode(cfg, h, _index(params["self_blocks"], i),
+                             cache["k"][i], cache["v"][i], pos, pos)
+        h = _cross_decode(cfg, h, _index(params["cross_blocks"], u),
+                          cache["xk"][u], cache["xv"][u])
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return matmul(h, params["lm_head"]), cache

@@ -1,19 +1,28 @@
-"""Arch registry: the dense, MoE, SSM and hybrid subset of
-``repro.models.registry``.
+"""Arch registry: uniform adapter over the model families, the
+counterpart of ``repro.models.registry``.
 
     adapter = get_adapter("rwkv6-3b")
     params  = adapter.init(torch.Generator("cuda").manual_seed(0))
-    logits  = adapter.forward(params, {"tokens": tokens})   # prefill
+    logits  = adapter.forward(params, batch)          # prefill
+    loss    = adapter.loss(params, batch)             # forward only
     state   = adapter.init_decode_state(batch, max_seq, device="cuda")
     logits, state = adapter.decode(params, {"tokens": tokens}, state, pos)
 
-``pos`` is a host int. The dense and MoE families share
+``batch`` is a dict: {"tokens": (b, s)} plus the family's
+``extra_inputs`` ("vision_embeds" (b, n_vision_tokens, d_model) for vlm,
+"frames" (b, n_audio_frames, d_model) for audio) and "labels" for
+``loss``. ``pos`` is a host int. The dense and MoE families share
 ``models/transformer``, as in the reference; the SSM family runs
 ``models/rwkv6``, whose decode state ignores ``max_seq`` and ``dtype`` (as
 the reference's does: the state's dtypes are fixed); the hybrid family
 runs ``models/zamba2``, whose decode state holds fp32 SSM states, conv
 tails and a KV cache in ``dtype`` for each application of its shared
-attention block. The other families (and ``loss``) wait for their slices.
+attention block; the vlm family runs ``models/mllama`` and the audio
+family ``models/whisper``, whose decode states add a cross KV (zeros until
+the caller fills it from ``precompute_cross_kv``). The reference's
+``input_structs``, ``supports``, ``param_specs`` and ``state_specs`` wait
+for the launch-tooling and distributed slices, ``loss``'s gradient for
+the training slice.
 """
 from __future__ import annotations
 
@@ -23,7 +32,23 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
-from . import rwkv6, transformer, zamba2
+from . import mllama, rwkv6, transformer, whisper, zamba2
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          vocab: int) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32; logits (b, s, Vp), labels
+    (b, s). Padded vocab entries never win: they are set to -1e9 before
+    the logsumexp."""
+    lg = logits[:, :-1].float()
+    lb = labels[:, 1:].long()
+    Vp = lg.shape[-1]
+    if Vp > vocab:
+        pad = torch.arange(Vp, device=lg.device) >= vocab
+        lg = torch.where(pad, -1e9, lg)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, lb[..., None])[..., 0]
+    return torch.mean(lse - picked)
 
 
 def _tfm_forward(params, cfg, batch):
@@ -54,6 +79,23 @@ def _zamba_decode(params, cfg, batch, state, pos):
     return zamba2.decode_step(params, cfg, batch["tokens"], state, pos)
 
 
+def _mllama_forward(params, cfg, batch):
+    return mllama.forward(params, cfg, batch["tokens"],
+                          batch["vision_embeds"])
+
+
+def _mllama_decode(params, cfg, batch, state, pos):
+    return mllama.decode_step(params, cfg, batch["tokens"], state, pos)
+
+
+def _whisper_forward(params, cfg, batch):
+    return whisper.forward(params, cfg, batch["tokens"], batch["frames"])
+
+
+def _whisper_decode(params, cfg, batch, state, pos):
+    return whisper.decode_step(params, cfg, batch["tokens"], state, pos)
+
+
 _TRANSFORMER = dict(init=transformer.init, forward=_tfm_forward,
                     decode=_tfm_decode, init_state=transformer.init_cache)
 
@@ -64,6 +106,12 @@ _FAMILY = {
                 init_state=_rwkv_init_state),
     "hybrid": dict(init=zamba2.init, forward=_zamba_forward,
                    decode=_zamba_decode, init_state=zamba2.init_state),
+    "vlm": dict(init=mllama.init, forward=_mllama_forward,
+                decode=_mllama_decode, init_state=mllama.init_cache,
+                extra_inputs=("vision_embeds",)),
+    "audio": dict(init=whisper.init, forward=_whisper_forward,
+                  decode=_whisper_decode, init_state=whisper.init_cache,
+                  extra_inputs=("frames",)),
 }
 
 
@@ -75,12 +123,23 @@ class ModelAdapter:
     def _fns(self) -> dict:
         return _FAMILY[self.cfg.family]
 
+    @property
+    def extra_inputs(self) -> tuple:
+        """Inputs beside "tokens" that ``forward`` reads."""
+        return self._fns.get("extra_inputs", ())
+
     def init(self, gen: torch.Generator) -> dict:
         return self._fns["init"](self.cfg, gen)
 
     def forward(self, params: dict, batch: dict) -> torch.Tensor:
         """Logits (b, s, V_padded) of a whole sequence (prefill)."""
         return self._fns["forward"](params, self.cfg, batch)
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross entropy of ``forward``'s logits against
+        batch["labels"], padded vocab entries masked."""
+        return _xent(self.forward(params, batch), batch["labels"],
+                     self.cfg.vocab)
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype=torch.bfloat16, device="cuda") -> dict:

@@ -1,0 +1,286 @@
+"""Whisper-small backbone: encoder-decoder transformer (arXiv:2212.04356).
+12 encoder + 12 decoder layers, d_model 768, 12 heads, d_ff 3072,
+vocab 51865 (padded to 51968).
+
+The PyTorch counterpart of ``repro.models.whisper``, function for
+function, with the same cast order. The conv frontend is a stub, as in
+the reference: callers give precomputed frame embeddings
+(b, n_audio_frames, d_model). Positions are sinusoidal on both sides,
+blocks are pre-LN (LayerNorm at a fixed eps of 1e-5) with biased
+projections and tanh-approximated GELU MLPs, and the decoder's head ties
+the token embedding.
+
+``encode`` and ``forward`` (prefill) are plain torch ops with torch.matmul
+products, as the other families' prefills: the JAX package has no prefill
+kernel. In ``decode_step`` every weight product goes through
+``layers.matmul`` (the row-stream kernel), the head included: it reads
+:func:`tied_head`, a contiguous copy of ``embed.T`` made once per
+parameter set. The self-attention goes through
+``layers._cached_attention_local`` and the cross-attention through
+``layers.cross_decode_attention``, so both through the flash-decode kernel.
+``precompute_cross_kv`` fills the cross KV from the encoder output; the
+serve driver, as the reference's, never calls it.
+
+Parameters are a dict of tensors with the reference's structure, the
+per-layer ``encoder`` and ``decoder`` leaves stacked along a leading layer
+dim. The reference's ``remat`` option waits for the training slice, its
+``param_specs``/``cache_specs`` for the distributed one.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..distributed.sharding import padded_vocab
+from .layers import (CHUNKED_ATTN_THRESHOLD, _cached_attention_local,
+                     attention_scores, causal_mask, chunked_attention,
+                     cross_decode_attention, dense_init, gelu_mlp, layernorm,
+                     matmul)
+from .transformer import _dtype, _index, _stack
+
+
+def sinusoid_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., s) int -> (..., s, d) float32 sinusoidal embeddings."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / (half - 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen: torch.Generator, cfg, nH: int, dt) -> dict:
+    d = cfg.d_model
+    n = nH * cfg.resolved_head_dim
+    dev = gen.device
+    return {
+        "wq": dense_init(gen, (d, n), dt),
+        "bq": torch.zeros((n,), dtype=dt, device=dev),
+        "wk": dense_init(gen, (d, n), dt),
+        "wv": dense_init(gen, (d, n), dt),
+        "bv": torch.zeros((n,), dtype=dt, device=dev),
+        "wo": dense_init(gen, (n, d), dt),
+        "bo": torch.zeros((d,), dtype=dt, device=dev),
+    }
+
+
+def _mlp_init(gen: torch.Generator, cfg, dt) -> dict:
+    dev = gen.device
+    return {
+        "w_up": dense_init(gen, (cfg.d_model, cfg.d_ff), dt),
+        "b_up": torch.zeros((cfg.d_ff,), dtype=dt, device=dev),
+        "w_down": dense_init(gen, (cfg.d_ff, cfg.d_model), dt),
+        "b_down": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+def _ln_init(cfg, dt, dev) -> dict:
+    return {"w": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+            "b": torch.zeros((cfg.d_model,), dtype=dt, device=dev)}
+
+
+def init(cfg, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen``'s device with the reference's structure
+    and scales: normal/sqrt(fan_in) projections, the embedding at 0.02,
+    zero biases and LayerNorm shifts, unit LayerNorm scales. The KV heads
+    are the query heads (no tensor-parallel padding in the port yet)."""
+    dt = _dtype(cfg)
+    dev = gen.device
+    nH = cfg.n_heads
+
+    def enc_block():
+        return {"attn": _attn_init(gen, cfg, nH, dt),
+                "ln_attn": _ln_init(cfg, dt, dev),
+                "mlp": _mlp_init(gen, cfg, dt),
+                "ln_mlp": _ln_init(cfg, dt, dev)}
+
+    def dec_block():
+        return {"attn": _attn_init(gen, cfg, nH, dt),
+                "ln_attn": _ln_init(cfg, dt, dev),
+                "xattn": _attn_init(gen, cfg, nH, dt),
+                "ln_xattn": _ln_init(cfg, dt, dev),
+                "mlp": _mlp_init(gen, cfg, dt),
+                "ln_mlp": _ln_init(cfg, dt, dev)}
+
+    return {
+        "embed": dense_init(gen, (padded_vocab(cfg.vocab), cfg.d_model), dt,
+                            scale=0.02),
+        "encoder": _stack([enc_block() for _ in range(cfg.encoder_layers)]),
+        "decoder": _stack([dec_block() for _ in range(cfg.n_layers)]),
+        "ln_enc": _ln_init(cfg, dt, dev),
+        "ln_dec": _ln_init(cfg, dt, dev),
+    }
+
+
+def tied_head(embed: torch.Tensor) -> torch.Tensor:
+    """The decode head: ``embed.T`` (d, V) made contiguous, as
+    rowstream_matmul requires. Made once per embedding tensor and kept on
+    that tensor (attribute ``_tied_head``), so it lives as long as the
+    parameters and no step copies it. Made again if the embedding was
+    changed in place since, as its version counter shows. An inference
+    tensor has no version counter, so such an embedding is refused: make
+    the parameters outside ``torch.inference_mode``."""
+    if embed.is_inference():
+        raise ValueError("tied_head: the embedding is an inference tensor, "
+                         "whose in-place changes cannot be seen; make the "
+                         "parameters outside torch.inference_mode")
+    version = embed._version
+    kept = getattr(embed, "_tied_head", None)
+    if kept is None or kept[0] != version:
+        kept = (version, embed.T.contiguous())
+        embed._tied_head = kept
+    return kept[1]
+
+
+# ---------------------------------------------------------------------------
+# Attention helpers (biased projections, whisper-style)
+# ---------------------------------------------------------------------------
+
+def _heads(cfg, x: torch.Tensor, w: torch.Tensor, b=None,
+           mm=torch.matmul) -> torch.Tensor:
+    bsz, s, _ = x.shape
+    y = mm(x, w)
+    if b is not None:
+        y = y + b
+    return y.reshape(bsz, s, -1, cfg.resolved_head_dim).transpose(1, 2)
+
+
+def _attn(params: dict, cfg, x: torch.Tensor, kv: torch.Tensor, mask,
+          causal: bool = False) -> torch.Tensor:
+    """Full-sequence attention of `x` over `kv`, products through
+    torch.matmul. Long causal self-attention takes the chunked
+    online-softmax path, as in the reference."""
+    q = _heads(cfg, x, params["wq"], params["bq"])
+    k = _heads(cfg, kv, params["wk"])
+    v = _heads(cfg, kv, params["wv"], params["bv"])
+    if causal and x.shape[1] >= CHUNKED_ATTN_THRESHOLD:
+        out = chunked_attention(q, k, v)
+    else:
+        out = attention_scores(q, k, v, mask)
+    b, h, s, hd = out.shape
+    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    return torch.matmul(out, params["wo"]) + params["bo"]
+
+
+def _ln(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return layernorm(x, p["w"], p["b"], eps)
+
+
+# ---------------------------------------------------------------------------
+# Encoder / decoder
+# ---------------------------------------------------------------------------
+
+def _enc_block(cfg, h: torch.Tensor, bp: dict) -> torch.Tensor:
+    x = _ln(bp["ln_attn"], h)
+    h = h + _attn(bp["attn"], cfg, x, x, None)
+    return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h), torch.matmul)
+
+
+def encode(params: dict, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (b, n_frames, d_model) stub embeddings -> encoder output."""
+    b, s, _ = frames.shape
+    pos = torch.arange(s, device=frames.device).expand(b, s)
+    h = frames + sinusoid_pos(pos, cfg.d_model).to(frames.dtype)
+    enc = params["encoder"]
+    for i in range(enc["ln_attn"]["w"].shape[0]):
+        h = _enc_block(cfg, h, _index(enc, i))
+    return _ln(params["ln_enc"], h)
+
+
+def _dec_block(cfg, h: torch.Tensor, bp: dict, enc: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    x = _ln(bp["ln_attn"], h)
+    h = h + _attn(bp["attn"], cfg, x, x, mask, causal=True)
+    h = h + _attn(bp["xattn"], cfg, _ln(bp["ln_xattn"], h), enc, None)
+    return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h), torch.matmul)
+
+
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            frames: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced forward: (b, s) tokens + frames -> logits
+    (b, s, V_padded)."""
+    enc = encode(params, cfg, frames)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    h = params["embed"][tokens] + sinusoid_pos(pos, cfg.d_model).to(
+        _dtype(cfg))
+    mask = causal_mask(s, s, device=tokens.device)
+    dec = params["decoder"]
+    for i in range(dec["ln_attn"]["w"].shape[0]):
+        h = _dec_block(cfg, h, _index(dec, i), enc, mask)
+    h = _ln(params["ln_dec"], h)
+    return torch.matmul(h, params["embed"].T)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda") -> dict:
+    """Zeroed stacked caches: self KV (L, b, h, max_seq, hd) and cross KV
+    (L, b, h, n_audio_frames, hd), the KV heads being the query heads. bf16
+    by default, also for an fp32 model, as in the reference."""
+    hd, nH, L = cfg.resolved_head_dim, cfg.n_heads, cfg.n_layers
+    self_shape = (L, batch, nH, max_seq, hd)
+    cross_shape = (L, batch, nH, cfg.n_audio_frames, hd)
+    return {"k": torch.zeros(self_shape, dtype=dtype, device=device),
+            "v": torch.zeros(self_shape, dtype=dtype, device=device),
+            "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
+            "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+
+
+def precompute_cross_kv(params: dict, cfg, enc_out: torch.Tensor) -> tuple:
+    """Each decoder layer's cross K and V of the encoder output, stacked:
+    (L, b, h, n_frames, hd) each, in the projection's dtype (the caller
+    writes them into a cache of its own dtype)."""
+    dec = params["decoder"]
+    ks, vs = [], []
+    for i in range(dec["ln_attn"]["w"].shape[0]):
+        xa = _index(dec, i)["xattn"]
+        ks.append(_heads(cfg, enc_out, xa["wk"]))
+        vs.append(_heads(cfg, enc_out, xa["wv"], xa["bv"]))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def dec_block_step(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
+                   vc: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+                   pos: int) -> torch.Tensor:
+    """One decoder layer of the decode step: h (b, 1, d) -> (b, 1, d);
+    writes the new token's K/V into this layer's caches kc/vc at `pos` and
+    attends over the cross KV xk/xv."""
+    b = h.shape[0]
+    a, xa = bp["attn"], bp["xattn"]
+    x = _ln(bp["ln_attn"], h)
+    q = _heads(cfg, x, a["wq"], a["bq"], matmul)
+    k = _heads(cfg, x, a["wk"], None, matmul)
+    v = _heads(cfg, x, a["wv"], a["bv"], matmul)
+    out = _cached_attention_local(q, k, v, kc, vc, pos, pos)
+    out = out.transpose(1, 2).reshape(b, 1, -1)
+    h = h + (matmul(out, a["wo"]) + a["bo"])
+    xq = _heads(cfg, _ln(bp["ln_xattn"], h), xa["wq"], xa["bq"], matmul)
+    xout = cross_decode_attention(xq, xk, xv).transpose(1, 2).reshape(
+        b, 1, -1)
+    h = h + (matmul(xout, xa["wo"]) + xa["bo"])
+    return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h))
+
+
+def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
+                pos: int) -> tuple:
+    """token: (b, 1) int; pos: host int. Returns (logits (b, 1, V_padded),
+    cache); the self KV is written in place, the cross KV only read."""
+    b = token.shape[0]
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
+    h = params["embed"][token] + sinusoid_pos(posb, cfg.d_model).to(
+        _dtype(cfg))
+    dec = params["decoder"]
+    for i in range(cache["k"].shape[0]):
+        h = dec_block_step(cfg, h, _index(dec, i), cache["k"][i],
+                           cache["v"][i], cache["xk"][i], cache["xv"][i],
+                           pos)
+    h = _ln(params["ln_dec"], h)
+    return matmul(h, tied_head(params["embed"])), cache

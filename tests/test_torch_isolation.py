@@ -48,8 +48,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_every_port_module_is_scanned():
     """The scan above globs the package: the modules of each slice are in
-    it, the MoE family's, the prefill path's, the hybrid family's and the
-    row-paged cache's included."""
+    it, the MoE family's, the prefill path's, the hybrid family's, the
+    row-paged cache's and the vlm and audio families' included."""
     names = {str(p.relative_to(REPO / "src" / "repro_torch"))
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"models/moe.py", "models/transformer.py", "models/layers.py",
@@ -57,7 +57,9 @@ def test_every_port_module_is_scanned():
             "configs/phi35_moe_42b.py", "launch/serve.py",
             "models/zamba2.py", "configs/zamba2_1_2b.py",
             "serve/kv_cache.py", "serve/batching.py",
-            "workloads/stream.py"} <= names
+            "workloads/stream.py", "models/whisper.py", "models/mllama.py",
+            "configs/whisper_small.py", "configs/llama32_vision_90b.py",
+            "models/registry.py"} <= names
     assert REPO / "chip_smoke.py" in PORT_FILES
 
 
@@ -69,12 +71,16 @@ def test_serve_driver_on_cpu_loads_no_jax_or_repro():
         "from repro_torch.configs import ALL_ARCHS, reduced\n"
         "from repro_torch.models.registry import get_adapter\n"
         "from repro_torch.serve import RowPagedKVCache, tokens_per_row\n"
-        "for arch in ('qwen2-7b', 'granite-moe-3b-a800m', 'zamba2-1.2b'):\n"
+        "for arch in ('qwen2-7b', 'granite-moe-3b-a800m', 'zamba2-1.2b',"
+        " 'whisper-small'):\n"
         "    assert serve.main(['--arch', arch, '--reduced', '--device',"
         " 'cpu', '--requests', '2', '--slots', '2', '--max-new', '2']) == 0\n"
         "    ad = get_adapter(reduced(ALL_ARCHS[arch]))\n"
         "    p = ad.init(torch.Generator().manual_seed(0))\n"
-        "    ad.forward(p, {'tokens': torch.ones((1, 4), dtype=torch.int64)})\n"
+        "    batch = {n: torch.zeros((1, 16, 64), dtype=torch.bfloat16)"
+        " for n in ad.extra_inputs}\n"
+        "    batch['tokens'] = torch.ones((1, 4), dtype=torch.int64)\n"
+        "    ad.forward(p, batch)\n"
         "c = RowPagedKVCache(8, tokens_per_row(64, 2), 2, 64, 2, 4,"
         " device='cpu')\n"
         "c.alloc_seq(0, 0)\n"

@@ -1,5 +1,8 @@
 """The port's decode-path layers against ``repro.models.layers`` in fp32,
-on the same numpy-seeded inputs, at tests/test_layers.py's tolerances.
+on the same numpy-seeded inputs, at tests/test_layers.py's tolerances;
+layernorm, the GELU MLP, cross-attention (its q-block path included) and
+the cross decode attention through flash decode at tests/test_kernels.py's
+fp32 tolerance, 1e-5 (a bf16 cross cache at its bf16 one, 3e-2).
 Biases and norm weights are seeded values, not the zeros and ones init
 gives, so those paths are exercised."""
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.models import layers as tl
 
 TOL = 2e-5
+LAYER_TOL = 1e-5
 
 
 def _cfgs(arch):
@@ -121,6 +125,72 @@ def test_swiglu_matches_jax():
         "w_down": (rng.standard_normal((f, d)) / 11).astype(np.float32)})
     xj, xt = _both(rng.standard_normal((2, 1, d), np.float32))
     _close(tl.swiglu(pt, xt), jl.swiglu(pj, xj))
+
+
+def test_layernorm_matches_jax():
+    rng = np.random.default_rng(4)
+    xj, xt = _both((rng.standard_normal((3, 5, 64)) * 3 + 1.5
+                    ).astype(np.float32))
+    (wj, wt), (bj, bt) = (
+        _both((1 + rng.standard_normal(64) * 0.1).astype(np.float32)),
+        _both((rng.standard_normal(64) * 0.1).astype(np.float32)))
+    _close(tl.layernorm(xt, wt, bt, 1e-5), jl.layernorm(xj, wj, bj, 1e-5),
+           LAYER_TOL)
+
+
+def test_gelu_mlp_matches_jax_with_tanh_gelu():
+    rng = np.random.default_rng(5)
+    d, f = 64, 128
+    pj, pt = _both({
+        "w_up": (rng.standard_normal((d, f)) / 8).astype(np.float32),
+        "b_up": (rng.standard_normal(f) * 0.1).astype(np.float32),
+        "w_down": (rng.standard_normal((f, d)) / 11).astype(np.float32),
+        "b_down": (rng.standard_normal(d) * 0.1).astype(np.float32)})
+    xj, xt = _both(rng.standard_normal((2, 3, d), np.float32) * 2)
+    _close(tl.gelu_mlp(pt, xt, torch.matmul), jl.gelu_mlp(pj, xj),
+           LAYER_TOL)
+    _close(tl.gelu_mlp(pt, xt), jl.gelu_mlp(pj, xj), LAYER_TOL)
+
+
+@pytest.mark.parametrize("arch,s", [("llama-3.2-vision-90b", 7),
+                                    ("qwen3-14b", 5),
+                                    ("llama-3.2-vision-90b", 8192 + 100)])
+def test_cross_attention_matches_jax(arch, s):
+    """qwen3-14b's config exercises the qk_norm branch; a query length of
+    8292 takes the q-block path, its last block padded."""
+    jcfg, cfg = _cfgs(arch)
+    rng = np.random.default_rng(s)
+    pj, pt = _both(_attn_params(rng, cfg))
+    xj, xt = _both(rng.standard_normal((1, s, cfg.d_model), np.float32))
+    kvj, kvt = _both(rng.standard_normal((1, 16, cfg.d_model), np.float32))
+    out = tl.cross_attention(pt, xt, kvt, cfg)
+    ref = jl.cross_attention(pj, xj, kvj, jcfg)
+    assert tuple(out.shape) == ref.shape == (1, s, cfg.d_model)
+    _close(out, ref, LAYER_TOL)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    ("float32", "float32", LAYER_TOL), ("float32", "bfloat16", 3e-2),
+    ("bfloat16", "bfloat16", 3e-2)])
+def test_cross_decode_attention_matches_attention_scores(q_dtype, kv_dtype,
+                                                         tol):
+    """Flash decode at pos = S - 1 against the reference's cross decode
+    (``attention_scores`` over the KV heads repeated), S not a multiple of
+    a 4 KB row's tokens. The reference rounds the probabilities to the
+    cache's dtype before the second product; the port does not."""
+    rng = np.random.default_rng(6)
+    b, h, hkv, S, hd = 2, 4, 2, 37, 16
+    q = rng.standard_normal((b, h, 1, hd)).astype(np.float32)
+    kv = rng.standard_normal((2, b, hkv, S, hd)).astype(np.float32)
+    qj = jnp.asarray(q, getattr(jnp, q_dtype))
+    kj, vj = (jnp.asarray(x, getattr(jnp, kv_dtype)) for x in kv)
+    ref = jl.attention_scores(qj, jl.repeat_kv(kj, 2), jl.repeat_kv(vj, 2),
+                              None)
+    qt = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    kt, vt = (torch.from_numpy(x).to(getattr(torch, kv_dtype)) for x in kv)
+    out = tl.cross_decode_attention(qt, kt, vt)
+    assert out.dtype == qt.dtype and tuple(out.shape) == ref.shape
+    _close(out.float(), np.asarray(ref, np.float32), tol)
 
 
 def test_dense_init_distribution():

@@ -1,9 +1,10 @@
 """The slices as a whole: the port's serve loop, on the reference's
 parameters moved across by the bridge, emits exactly the greedy tokens of
 ``repro.launch.serve.main`` for reduced qwen2-7b (KV cache), reduced
-granite-moe-3b (KV cache, MoE FFN), reduced rwkv6-3b (recurrent state) and
+granite-moe-3b (KV cache, MoE FFN), reduced rwkv6-3b (recurrent state),
 reduced zamba2-1.2b (SSM and conv state, a KV cache per shared attention
-application) in fp32."""
+application), reduced whisper-small and reduced llama-3.2-vision (a KV
+cache and a cross KV that neither driver fills) in fp32."""
 import jax
 import numpy as np
 import pytest
@@ -25,7 +26,8 @@ ARGV = ["--reduced", "--requests", "4", "--slots", "2", "--max-new", "8"]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-3b",
-                                  "granite-moe-3b-a800m", "zamba2-1.2b"])
+                                  "granite-moe-3b-a800m", "zamba2-1.2b",
+                                  "whisper-small", "llama-3.2-vision-90b"])
 def test_serve_tokens_match_jax_driver(monkeypatch, arch):
     batchers = []
 
