@@ -11,7 +11,11 @@ GPU, from the root of a checkout:
    shapes of the main paths and at odd ones: flash_decode and
    rowstream_matmul with the tolerances of tests/test_kernels.py, rwkv_scan
    at its test shapes, with extreme decay and with rwkv6's own decays,
-   ragged lengths, bf16 inputs and rwkv6-3b's full width. rowstream_matmul
+   ragged lengths, bf16 inputs and rwkv6-3b's full width; rwkv_scan_bwd
+   (the scan's gradient) at the same cases and one full-width layer at the
+   training shape (4 x 128, H 40), with and without a gradient of the
+   final state, to the forward's tolerance, to identical bits from two
+   calls and to one device kernel of its own per call. rowstream_matmul
    is also held, at the decode path's shapes, to a norm-wise bound per
    slice of 256 columns, to identical bits from two calls, and to one
    device kernel and one allocation (the output) per call. The path
@@ -67,6 +71,14 @@ GPU, from the root of a checkout:
      frames, or 4 x 1024 tokens with 4 x 1601 vision embeddings; in fp32,
      64 tokens through ``decode_step`` (cross KV filled, fp32 cache)
      against ``forward``.
+   * rwkv6-3b trained through ``repro_torch.launch.train`` at full width
+     and depth in bf16 with the reference driver's defaults (seq 128,
+     global batch 8, 2 microbatches, lr 1e-3) for 10 steps: finite
+     losses, 128 rwkv_scan launches a step (32 layers x 2 microbatches,
+     each layer's forward twice with remat) and 64 rwkv_scan_bwd; ms per
+     step, tokens/s, peak memory and the step's bound; then one step's
+     fp32 loss and grads at full width cut to 4 layers, kernel path
+     against plain path, per leaf norm-wise.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -74,14 +86,17 @@ GPU, from the root of a checkout:
      every weight product through rowstream_matmul.
 4. Times each kernel, its plain version and, where there is one, one
    library call (a yardstick only; the port never calls it) over the
-   kernel's launches of one decode step (flash_decode, rowstream_matmul)
-   or one forward (rwkv_scan): the kernel's wall time on the device's clock
+   kernel's launches of one decode step (flash_decode, rowstream_matmul),
+   one forward (rwkv_scan) or one training microbatch (rwkv_scan_bwd, on
+   the inputs the training run gave it): the kernel's wall time on the
+   device's clock
    from CUDA events, then device times from torch.profiler, and profiled
    splits of each forward and of a decode step of each model (zamba2's
    by SSD scan, conv, shared attention and products; whisper's and
    mllama's steps by rowstream_matmul, self and cross flash_decode;
    whisper's forward by encoder, decoder self-attention, cross-attention
-   and products), the cross flash_decode launches of a step at their
+   and products; a training step by scan forward, scan backward, products,
+   optimizer and other), the cross flash_decode launches of a step at their
    shapes, zamba2's, whisper's and mllama's products one line per shape;
    each
    profiled window must hold as many device kernels per call as a
@@ -107,14 +122,19 @@ workspace) and each step's totals. ``--only rwkv_scan``: its build, its
 checks, then the 32 launches of one rwkv6-3b forward at full width, each
 on its own inputs synthesised from a seed with rwkv6's decays (wall and
 device time, plain time, bound) and the kernel's plan. ``--only zamba2``
-builds and checks all three kernels, then runs only zamba2's phases and
+builds and checks all four kernels, then runs only zamba2's phases and
 the paged pool, profiled parts included (no ``ok`` line); ``--only
 whisper`` and ``--only mllama`` likewise run only that model's phases.
-``--baseline``
+``--only rwkv_scan`` also checks rwkv_scan_bwd and times the 32
+launches of one training microbatch on synthesised inputs. ``--only
+train`` builds and checks rwkv_scan, forward and backward, then runs only
+the training phases, profiled split and backward timings included (no
+``ok`` line). ``--baseline``
 runs either on a tree whose kernel predates its redesign (copy this
 script into that tree's root): it leaves out the checks and plan that the
-redesign added and times the old kernel's device kernels (for rwkv_scan
-also the plain version, the same code on both trees).
+redesign added (and, for rwkv_scan, the backward) and times the old
+kernel's device kernels (for rwkv_scan also the plain version, the same
+code on both trees).
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA card, or a directory without the
@@ -156,6 +176,7 @@ RM_KERNELS = ("rowstream_tiles", "rowstream_scalar")
 # (`--baseline`).
 BASELINE_RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
 RS_KERNELS = ("rwkv_scan_head",)
+RS_BWD_KERNELS = ("rwkv_scan_bwd_head",)
 # rwkv_scan's device kernel before the one-block-per-head design
 # (`--baseline`).
 BASELINE_RS_KERNELS = ("rwkv_scan_kernel",)
@@ -191,6 +212,31 @@ RM_SLICE = 256
 # Defaults of launch/serve.py, and the prompt batch of each forward.
 SLOTS, MAX_SEQ, N_REQ, PROMPT_LEN, MAX_NEW = 4, 128, 12, 16, 24
 PREFILL_B, PREFILL_S, DECODE_T = 4, 1024, 64
+# The training phase: rwkv6-3b through launch/train.py with the reference
+# driver's defaults (seq 128, global batch 8, 2 microbatches, lr 1e-3) for
+# TRAIN_STEPS steps, so that its closing loss line prints. The fp32 step
+# check runs the full width at TRAIN_CHECK_LAYERS layers.
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 128, 8, 2
+TRAIN_LR = 1e-3
+TRAIN_CHECK_LAYERS = 4
+# One training step's fp32 loss and grads, kernel path against plain path,
+# per leaf: ||kernel - plain|| <= TRAIN_GRAD_TOL ||plain||. Both paths sum
+# in fp32 in other orders, and the forward kernel's state products carry
+# 22 of fp32's 24 bits (3xTF32); a wrong backward is off by O(1).
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+# Host ops whose kernels are the step's products, forward and backward
+# (autograd's backward of torch.matmul runs aten::mm and aten::bmm).
+TRAIN_PRODUCT_OPS = ("aten::matmul", "aten::mm", "aten::bmm", "aten::addmm")
+# rwkv_scan_bwd launches per profiler window of the plain backward's
+# timing: about 18000 kernels a window at the training shape.
+PLAIN_BWD_GROUP = 4
+# The full run times rwkv_scan_bwd (kernel, wall, plain and bound) over
+# this many of a training microbatch's 32 launches: the plain backward's
+# 4480 kernels a launch take about 3 s of profiling each. `--only train`
+# and `--only rwkv_scan` time all 32.
+FULL_RUN_BWD_LAUNCHES = 8
 # `--only` choices that build and check every kernel, then run a model's
 # phases.
 MODEL_ONLY = (None, "zamba2", "whisper", "mllama")
@@ -389,7 +435,8 @@ def labelled(*targets):
 
 
 def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
-             products: bool, claims=()) -> dict:
+             products: bool, claims=(),
+             product_ops=("aten::matmul",)) -> dict:
     """Device ms per call, by part, of a profile that recorded host ops
     (``profile_calls(..., cpu=True)``). The device kernels that a part of
     `kernel_parts` (part -> device kernel names) names go to that part,
@@ -400,7 +447,8 @@ def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
     kernel goes to the part of `label_parts` (name given to
     :func:`labelled` -> part) of the first name in `label_parts`' order
     whose range is around the host op that launched it; else, with
-    `products`, to "products" if an aten::matmul launched it; else to
+    `products`, to "products" if one of `product_ops` is the host op that
+    launched it or one of its parents; else to
     "other", which also takes device time no host op claims. "device" is
     the total."""
     import torch
@@ -421,7 +469,8 @@ def op_split(prof, reps: int, kernel_parts: dict, label_parts: dict,
         labels = {n[len(LABEL):] for n in chain if n.startswith(LABEL)}
         owner = next((part for n, part in label_parts.items()
                       if n in labels), None)
-        if owner is None and products and "aten::matmul" in chain:
+        if owner is None and products \
+                and any(o in chain for o in product_ops):
             owner = "products"
         if owner is None:
             continue
@@ -876,22 +925,113 @@ def check_rwkv_scan(torch, dev) -> float:
                   f"max err o {err_o}, S {err_s}")
         if shape == cases[4][0] and dt == "float32":
             worst_full = max(err_o, err_s)
-    # No backward kernel: a CUDA input that requires grad raises.
-    x = scan_inputs(torch, gen, 1, 4, 1, 16)
-    x[0].requires_grad_(True)
-    try:
-        rwkv_scan(*x)
-    except RuntimeError:
-        pass
-    else:
-        raise SmokeFailure("rwkv_scan ran on a CUDA input that requires "
-                           "grad")
     print(f"[kernels] rwkv_scan: {len(cases)} cases agree with the plain "
           f"version (fp32 rtol/atol 1e-3, atol 2e-3 with decays of 1e-35, "
           f"all finite; decays near 0.993 as rwkv6's init gives them; bf16 "
-          f"o 2e-2); a grad-requiring input raises; max "
-          f"abs err at rwkv6-3b's full width {worst_full!r}")
+          f"o 2e-2); max abs err at rwkv6-3b's full width {worst_full!r}")
     return worst_full
+
+
+def train_scan_shape() -> tuple:
+    """(b, s, H, hd) of each rwkv_scan launch of a training step: one
+    microbatch of rwkv6-3b at the train driver's defaults."""
+    return (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 40, 64)
+
+
+def rwkv_scan_bwd_cases() -> list:
+    """(shape, decay, dtype) of check_rwkv_scan_bwd: the forward's check
+    cases (rwkv_scan_cases) and one full-width layer at the training
+    shape, with rwkv6's own decays, in fp32 and bf16."""
+    train = train_scan_shape()
+    return [(shape, decay, dt) for shape, _, decay, dt in rwkv_scan_cases()] \
+        + [(train, "model", "float32"), (train, "model", "bfloat16")]
+
+
+def scan_bwd_verdict(torch, x, got, want, decay: str, dt: str) -> tuple:
+    """(within tolerance, max err of each gradient) of one rwkv_scan_bwd
+    result against its plain version on the same inputs: the forward's
+    rule (scan_verdict). fp32 gradients within 1e-3 + 1e-3 |ref| (atol
+    2e-3 with decays of 1e-35); bf16 ones, rounded once from fp32 sums
+    taken in another order, within 2e-2 + 2e-2 |ref|. du is fp32 (u is)."""
+    errs, ok = [], True
+    for g, ref, inp in zip(got, want, x):
+        atol = 2e-3 if decay == "extreme" else 1e-3
+        tol = (2e-2, 2e-2) if g.dtype == torch.bfloat16 else (1e-3, atol)
+        err = (g.float() - ref.float()).abs()
+        errs.append(err.max().item())
+        ok = ok and bool(g.isfinite().all()) and g.dtype == inp.dtype \
+            and g.shape == inp.shape \
+            and bool((err <= tol[1] + tol[0] * ref.float().abs()).all())
+    return ok, errs
+
+
+def check_rwkv_scan_bwd(torch, dev) -> float:
+    """The backward kernel against rwkv_scan_bwd_ref on the card, half the
+    cases with a gradient of the final state and half without; identical
+    bits from two calls at the training shape. Returns the largest error
+    at the training shape in fp32."""
+    from repro_torch.kernels.rwkv_scan import kernel
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cases = rwkv_scan_bwd_cases()
+    worst_train = 0.0
+    for n, (shape, decay, dt) in enumerate(cases):
+        b, s, H, hd = shape
+        x = scan_inputs(torch, gen, *shape, dtype=dt, decay=decay)
+        do = torch.randn(shape, generator=gen, device=dev).to(x[0].dtype)
+        dS = torch.randn((b, H, hd, hd), generator=gen, device=dev) \
+            if n % 2 == 0 else None
+        got = kernel.rwkv_scan_bwd(*x, do, dS)
+        torch.cuda.synchronize()
+        want = rwkv_scan_bwd_ref(*x, do, dS)
+        ok, errs = scan_bwd_verdict(torch, x, got, want, decay, dt)
+        check(ok, f"rwkv_scan_bwd {shape} {dt} decay {decay} dS "
+                  f"{dS is not None}: max err dr dk dv dw du {errs}")
+        if shape == train_scan_shape():
+            if dt == "float32":
+                worst_train = max(errs)
+            again = kernel.rwkv_scan_bwd(*x, do, dS)
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"rwkv_scan_bwd {shape} {dt}: two calls differ")
+        del got, want
+    print(f"[kernels] rwkv_scan_bwd: {len(cases)} cases agree with the plain "
+          f"backward (the forward's rule: fp32 rtol/atol 1e-3, atol 2e-3 "
+          f"with decays of 1e-35; bf16 gradients 2e-2), with and without a "
+          f"final-state gradient; identical bits from two calls at the "
+          f"training shape {train_scan_shape()} in fp32 and bf16; max abs "
+          f"err there (fp32) {worst_train!r}")
+    return worst_train
+
+
+def check_rwkv_scan_bwd_launches(torch, dev) -> dict:
+    """One rwkv_scan_bwd device kernel per call: 8 calls at the training
+    shape, counted by the profiler. The wrapper's other device kernels
+    (the layout copies in and out and du's sum over b) are printed."""
+    from repro_torch.kernels.rwkv_scan import kernel
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    shape = train_scan_shape()
+    x = scan_inputs(torch, gen, *shape, decay="model")
+    do = torch.randn(shape, generator=gen, device=dev)
+    outs = [kernel.rwkv_scan_bwd(*x, do, None)]
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profiled() as prof:
+            outs += [kernel.rwkv_scan_bwd(*x, do, None) for _ in range(8)]
+        kernels = {e.key: e.count for e in _kernel_events(prof)}
+        ours = sum(c for k, c in kernels.items()
+                   if any(n in k for n in RS_BWD_KERNELS))
+        if ours >= 8 and pads_kept(prof):
+            break
+        print(f"[profile] lost records: {kernels}, {pads_kept(prof)} of "
+              f"{PAD_LAUNCHES} pads kept; again")
+    check(ours == 8 and pads_kept(prof),
+          f"rwkv_scan_bwd: 8 calls ran device kernels {kernels} (expected "
+          f"8 of {RS_BWD_KERNELS})")
+    print(f"[kernels] rwkv_scan_bwd: 8 calls at {shape} ran {ours} "
+          f"{RS_BWD_KERNELS[0]} device kernels, one per call; all device "
+          f"kernels of the calls (the wrapper's layout copies and du's sum "
+          f"included): {kernels}")
+    return kernels
 
 
 # --- timing over one decode step's launches ----------------------------------
@@ -991,6 +1131,49 @@ def scan_work(torch, launches: list) -> dict:
     return {"launches_per_step": len(launches), "names": RS_KERNELS,
             "reps": 3, "plain_reps": 1, "kernel": run(rwkv_scan),
             "plain": run(rwkv_scan_ref), "library": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
+
+
+def rwkv_scan_bwd_ops(b: int, s: int, H: int, hd: int) -> float:
+    """Operations of the scan's backward, as the plain backward counts
+    them: per token and head, one forward state update (the states the
+    gradients read) and the five hd x hd products of the walk back (dr,
+    dk, dv, dw and the G update), a multiply-add each: 12 hd^2."""
+    return 12.0 * hd * hd * b * s * H
+
+
+def scan_bwd_work(torch, launches: list) -> dict:
+    """rwkv_scan_bwd launches, each on its own (r, k, v, w, u, do, dS):
+    on the kernel wrapper and on the plain backward. Bytes: each input
+    read once, each gradient written once (the kernel's checkpoint scratch
+    is its own traffic, not the function's). No single PyTorch call
+    computes this gradient, so there is no library time. The plain
+    backward runs 4480 kernels a launch at the training shape; its device
+    time is taken over all the launches in profiler windows of
+    PLAIN_BWD_GROUP launches each (``plain_one``), since windows of 10^5
+    kernels lose records (PERF.md)."""
+    from repro_torch.kernels.rwkv_scan import kernel
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_bwd_ref
+
+    def run(fn):
+        return lambda: [fn(*x) for x in launches]
+
+    nbytes, ops = 0, 0
+    for x in launches:
+        r, u = x[0], x[4]
+        b, s, H, hd = r.shape
+        nbytes += sum(t.numel() * t.element_size() for t in x
+                      if t is not None)
+        nbytes += 4 * r.numel() * r.element_size() + u.numel() * 4
+        ops += rwkv_scan_bwd_ops(b, s, H, hd)
+    bound_ms, bound_by = bound(nbytes, ops, "float32")
+    return {"launches_per_step": len(launches), "names": RS_BWD_KERNELS,
+            "reps": 3, "kernel": run(kernel.rwkv_scan_bwd), "plain": None,
+            "plain_one": lambda i: [rwkv_scan_bwd_ref(*x) for x in launches[
+                i * PLAIN_BWD_GROUP:(i + 1) * PLAIN_BWD_GROUP]],
+            "plain_windows": -(-len(launches) // PLAIN_BWD_GROUP),
+            "library": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops}
 
@@ -1179,6 +1362,275 @@ def scan_phase(baseline=False) -> dict:
               f"threads, {p.tiles} tiles each, {p.smem} bytes of shared "
               f"memory a block, {p.blocks_per_sm} blocks per SM")
     return out
+
+
+def scan_bwd_phase() -> dict:
+    """rwkv_scan_bwd alone: the 32 launches of one microbatch of an
+    rwkv6-3b training step (b 4 x s 128, fp32, no final-state gradient,
+    as the model gives none), each on its own inputs synthesised from a
+    seed with rwkv6's decays: kernel wall and device time, plain time and
+    bound."""
+    import torch
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    cfg = ALL_ARCHS[TRAIN_ARCH]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    shape = train_scan_shape()
+    launches = []
+    for _ in range(cfg.n_layers):
+        x = scan_inputs(torch, gen, *shape, decay="model")
+        do = torch.randn(shape, generator=gen, device="cuda")
+        launches.append((*x, do, None))
+    work = scan_bwd_work(torch, launches)
+    work["per"] = (f"one rwkv6-3b training microbatch at b {shape[0]} x s "
+                   f"{shape[1]}, inputs synthesised with rwkv6's decays")
+    time_works({"rwkv_scan_bwd": work})
+    n = work["launches_per_step"]
+    print(f"[time] rwkv_scan_bwd per launch: kernel {work['ms'] / n!r} ms "
+          f"(wall {work['wall_ms'] / n!r}), plain {work['plain_ms'] / n!r} "
+          f"ms, bound {work['bound_ms'] / n!r} ms; kernel at "
+          f"{work['bound_ms'] / work['ms']!r} of its bound")
+    return numbers(work)
+
+
+# --- training ----------------------------------------------------------------
+
+def train_bound(cfg, params) -> dict:
+    """The least time of one training step of `cfg` at the driver's
+    defaults, from its work: the products (forward, the remat recompute of
+    every layer, and the backward's two products per forward product) at
+    bf16's 989 TFLOP/s, the scan's forward (twice: remat) and backward
+    at fp32's 67 TFLOP/s, and the optimizer's bytes at 3.35 TB/s. The
+    update reads every gradient, so it follows the backward: the bound is
+    the sum of the two phases."""
+    from repro_torch.models.rwkv6 import HEAD_DIM, n_heads
+    from repro_torch.kernels.rwkv_scan.kernel import default_chunk
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    blocks = sum(params["blocks"][w].numel() for w in RWKV_PRODUCTS)
+    head = params["lm_head"].numel()
+    mm_ops = 2 * tokens * (blocks + head) * 3 + 2 * tokens * blocks
+    b, s, H = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, n_heads(cfg)
+    scans = cfg.n_layers * TRAIN_MICRO
+    scan_ops = scans * (2 * rwkv_scan_ops(b, s, H, HEAD_DIM,
+                                          default_chunk(HEAD_DIM))
+                        + rwkv_scan_bwd_ops(b, s, H, HEAD_DIM))
+    n_params = sum(t.numel() for t in _tensors(params))
+    # AdamW reads each fp32 gradient twice (the global norm, the update),
+    # reads and writes both fp32 moments and the bf16 parameter: 28 bytes.
+    opt_bytes = 28 * n_params
+    compute_ms = (mm_ops / PEAK_OPS_PER_S["bfloat16"]
+                  + scan_ops / PEAK_OPS_PER_S["float32"]) * 1e3
+    opt_ms = opt_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"params": n_params, "product_ops": mm_ops, "scan_ops": scan_ops,
+            "optimizer_bytes": opt_bytes, "compute_ms": compute_ms,
+            "optimizer_ms": opt_ms, "bound_ms": compute_ms + opt_ms}
+
+
+def train_phase(torch, timed_launches: int | None = None) -> dict:
+    """rwkv6-3b trained at full width and depth in bf16 through
+    ``repro_torch.launch.train`` with the reference driver's defaults for
+    TRAIN_STEPS steps, random weights from SEED, the launch counters set
+    to 0 just before and read just after: per step 2 x 32 x 2 rwkv_scan
+    (each layer's forward and its remat recompute, per microbatch) and
+    32 x 2 rwkv_scan_bwd launches. The losses must be finite. Timed on
+    the host clock (each step ends in reading its loss back). The inputs
+    of the first `timed_launches` rwkv_scan_bwd launches (by default all
+    32 of step 0's first microbatch, left out of the median) are kept,
+    and their CUDA-event wall time taken, for phase 4 (``bwd_work``)."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.kernels.rwkv_scan import kernel
+    from repro_torch.launch import train as port_train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    L = ALL_ARCHS[TRAIN_ARCH].n_layers
+    timed = timed_launches or L
+    launches = []
+    bwd = kernel.rwkv_scan_bwd
+
+    def record(*args):
+        if len(launches) < timed:
+            launches.append(tuple(a.clone() if a is not None else None
+                                  for a in args))
+        return bwd(*args)
+
+    reset_launch_counters()
+    kernel.rwkv_scan_bwd = record
+    t0 = time.perf_counter()
+    try:
+        run = port_train.train(TRAIN_ARCH, steps=TRAIN_STEPS,
+                               seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               microbatches=TRAIN_MICRO, lr=TRAIN_LR,
+                               seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        kernel.rwkv_scan_bwd = bwd
+    total_s = time.perf_counter() - t0
+    counts = {name: c.count for name, c in launch_counters().items()}
+    per_step_counts = {"flash_decode": 0, "rowstream_matmul": 0,
+                       "rwkv_scan": 2 * L * TRAIN_MICRO,
+                       "rwkv_scan_bwd": L * TRAIN_MICRO}
+    check(counts == {n: k * TRAIN_STEPS for n, k in per_step_counts.items()},
+          f"rwkv6-3b training: launches {counts} in {TRAIN_STEPS} steps, "
+          f"expected {per_step_counts} per step")
+    check(all(math.isfinite(x) for x in run.losses),
+          f"rwkv6-3b training losses {run.losses}")
+    step_ms = [x * 1e3 for x in run.step_s]
+    warm = sorted(step_ms[1:])
+    median = warm[len(warm) // 2]
+    out = {"counts": counts, "per_step": per_step_counts,
+           "losses": run.losses, "step_ms": step_ms,
+           "median_step_ms": median, "first_step_ms": step_ms[0],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "run_s": total_s, "bound": train_bound(run.cfg, run.state.params)}
+    check(len(launches) == timed,
+          f"recorded {len(launches)} rwkv_scan_bwd launches, expected "
+          f"{timed}")
+    del run
+    torch.cuda.empty_cache()
+    work = out["bwd_work"] = scan_bwd_work(torch, launches)
+    work["per"] = (f"{'' if timed == L else f'{timed} of '}the {L} "
+                   f"launches of one rwkv6-3b training microbatch at b "
+                   f"{TRAIN_BATCH // TRAIN_MICRO} x s {TRAIN_SEQ}")
+    work["wall_ms"] = timed_ms(work["kernel"], work["reps"])
+    t1 = time.perf_counter()
+    out["fp32"] = train_fp32_check(torch)
+    print(f"[run] training: {TRAIN_STEPS} steps and the backward's wall "
+          f"time {t1 - t0:.1f} s, the fp32 step check "
+          f"{time.perf_counter() - t1:.1f} s")
+    return out
+
+
+def train_step_grads(torch, ad, params, batch) -> tuple:
+    """(loss, fp32 grads in leaf order) of one training step: the train
+    step's own per-microbatch loss and grads, with remat, summed in fp32
+    and averaged as ``make_train_step`` does."""
+    from repro_torch.train.train_step import _grads
+    parts = {k: v.chunk(TRAIN_MICRO, 0) for k, v in batch.items()}
+    acc, loss_sum = None, 0.0
+    for i in range(TRAIN_MICRO):
+        loss, grads = _grads(lambda p, b: ad.loss(p, b, remat=True), params,
+                             {k: v[i] for k, v in parts.items()})
+        loss_sum += float(loss)
+        acc = [g.float() for g in grads] if acc is None \
+            else [a.add_(g) for a, g in zip(acc, grads)]
+    return loss_sum / TRAIN_MICRO, [a / TRAIN_MICRO for a in acc]
+
+
+def train_fp32_check(torch) -> dict:
+    """One training step's loss and grads of rwkv6-3b in fp32 at full
+    width, its depth cut to TRAIN_CHECK_LAYERS layers, on the kernel path
+    (rwkv_scan and rwkv_scan_bwd; the launch counters read) against the
+    same step on the plain path, per leaf within TRAIN_GRAD_TOL
+    norm-wise."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.models.registry import get_adapter
+    full = ALL_ARCHS[TRAIN_ARCH]
+    cfg = dataclasses.replace(full, dtype="float32",
+                              n_layers=TRAIN_CHECK_LAYERS)
+    print(f"[depth] {TRAIN_ARCH} fp32 training-step check: {full.n_layers} "
+          f"layers cut to {cfg.n_layers} at full width (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab})")
+    ad = get_adapter(cfg)
+    params = ad.init(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).batch_at(0).items()}
+    reset_launch_counters()
+    loss_k, grads_k = train_step_grads(torch, ad, params, batch)
+    counts = {n: c.count for n, c in launch_counters().items()}
+    check(counts["rwkv_scan"] == 2 * cfg.n_layers * TRAIN_MICRO
+          and counts["rwkv_scan_bwd"] == cfg.n_layers * TRAIN_MICRO,
+          f"fp32 training step launched {counts}")
+    with plain_path():
+        loss_p, grads_p = train_step_grads(torch, ad, params, batch)
+    from repro_torch.train.optimizer import _leaves
+    worst, worst_leaf = 0.0, ""
+    for (path, _), gk, gp in zip(_leaves(params), grads_k, grads_p):
+        err = ((gk - gp).norm() / gp.norm()).item()
+        check(bool(gk.isfinite().all()) and err <= TRAIN_GRAD_TOL,
+              f"fp32 training step: leaf {'/'.join(path)} kernel against "
+              f"plain path ||diff|| / ||plain|| {err}")
+        if err > worst:
+            worst, worst_leaf = err, "/".join(path)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_err <= TRAIN_LOSS_RTOL,
+          f"fp32 training step loss {loss_k} against plain {loss_p}")
+    del params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "loss": loss_k, "plain_loss": loss_p,
+            "loss_rel_err": loss_err, "worst_leaf_err": worst,
+            "worst_leaf": worst_leaf, "counts": counts}
+
+
+def print_train(t: dict) -> None:
+    b = t["bound"]
+    f = t["fp32"]
+    print(f"[train] {TRAIN_ARCH} bf16 full width and depth, {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+          f"microbatches: step median {t['median_step_ms']!r} ms (first "
+          f"{t['first_step_ms']!r} ms), {t['tokens_per_s']!r} tokens/s, "
+          f"peak memory {t['peak_bytes']} bytes; loss {t['losses'][0]!r} -> "
+          f"{t['losses'][-1]!r}; launches {t['counts']} ({t['per_step']} "
+          f"per step); {t['run_s']!r} s in all")
+    print(f"[bound] {TRAIN_ARCH} training step: {b['params']} parameters; "
+          f"products {b['product_ops']!r} operations and the scans' "
+          f"{b['scan_ops']!r} fp32 operations, {b['compute_ms']!r} ms; the "
+          f"optimizer's {b['optimizer_bytes']} bytes {b['optimizer_ms']!r} "
+          f"ms; bound {b['bound_ms']!r} ms; bound / median step "
+          f"{b['bound_ms'] / t['median_step_ms']!r}")
+    print(f"[train] {TRAIN_ARCH} fp32 at {f['layers']} layers, one step on "
+          f"the kernel path against the plain path: loss {f['loss']!r} "
+          f"against {f['plain_loss']!r} (rel err {f['loss_rel_err']!r}, "
+          f"tolerance {TRAIN_LOSS_RTOL}); largest per-leaf ||kernel - "
+          f"plain|| / ||plain|| {f['worst_leaf_err']!r} ({f['worst_leaf']}, "
+          f"tolerance {TRAIN_GRAD_TOL}); launches {f['counts']}")
+
+
+def train_profiled(torch, t: dict) -> dict:
+    """A profiled training step of rwkv6-3b (bf16, full width, from SEED,
+    the driver's step), split by part: the scan's forward and backward
+    kernels, the products (forward and backward), the optimizer (every
+    kernel under ``adamw_update``) and the rest, with the device-idle
+    share of the median step's host time `host_ms`. Then the device times
+    of ``t["bwd_work"]`` (taken out of `t`): the 32 rwkv_scan_bwd launches
+    of one training microbatch, on the kernel and the plain backward."""
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import train as port_train
+    from repro_torch.train import train_step as ts_mod
+    cfg, ad, step = port_train.build(TRAIN_ARCH, False, TRAIN_MICRO,
+                                     TRAIN_LR)
+    state = [ts_mod.train_state_init(
+        ad.init(torch.Generator(device="cuda").manual_seed(SEED)))]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).batch_at(0).items()}
+
+    def one():
+        state[0], metrics = step(state[0], batch)
+        return float(metrics["loss"])
+
+    t0 = time.perf_counter()
+    with labelled((ts_mod, "adamw_update")):
+        prof = profile_calls(one, 1, cpu=True)
+    t1 = time.perf_counter()
+    split = op_split(prof, 1, {"scan forward": RS_KERNELS,
+                               "scan backward": RS_BWD_KERNELS},
+                     {"adamw_update": "optimizer"}, products=True,
+                     product_ops=TRAIN_PRODUCT_OPS)
+    check(all(t > 0 for t in split.values()),
+          f"training step: a part took no device time: {split}")
+    print_split(f"{TRAIN_ARCH} training step", split, t["median_step_ms"])
+    del state, prof
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    work = t.pop("bwd_work")
+    time_works({"rwkv_scan_bwd": work})
+    print(f"[run] training profiled: 3 steps {t1 - t0:.1f} s, their split "
+          f"{t2 - t1:.1f} s, the backward's device times "
+          f"{time.perf_counter() - t2:.1f} s")
+    return {"split": split, "rwkv_scan_bwd": numbers(work)}
 
 
 def rowstream_phase(baseline=False) -> dict:
@@ -1382,7 +1834,7 @@ def rwkv_forward_phase(torch, cfg, params) -> dict:
         counts = {name: c.count for name, c in launch_counters().items()}
         out["counts"] = counts
         check(counts == {"flash_decode": 0, "rowstream_matmul": 0,
-                         "rwkv_scan": cfg.n_layers},
+                         "rwkv_scan": cfg.n_layers, "rwkv_scan_bwd": 0},
               f"rwkv6-3b forward launched {counts}, expected "
               f"{cfg.n_layers} rwkv_scan and nothing else")
         check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
@@ -1967,6 +2419,10 @@ def time_works(works: dict) -> None:
         w["ms"] = device_ms(w["kernel"], w["reps"], w["names"])
         w["plain_ms"] = (device_ms(w["plain"], w.get("plain_reps", w["reps"]))
                          if w["plain"] is not None else None)
+        if "plain_one" in w:
+            w["plain_ms"] = sum(
+                device_ms(lambda i=i: w["plain_one"](i), 1)
+                for i in range(w["plain_windows"]))
         w["library_ms"] = (device_ms(w["library"], w["reps"])
                            if w["library"] is not None else None)
         print(f"[time] {name}, {w['launches_per_step']} launches of "
@@ -2455,7 +2911,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
-                                       "mllama"],
+                                       "mllama", "train"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -2485,8 +2941,12 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
-    names = build.KERNELS if args.only in MODEL_ONLY \
-        else (args.only,)
+    if args.only in MODEL_ONLY:
+        names = build.KERNELS
+    elif args.only in ("rwkv_scan", "train") and not args.baseline:
+        names = ("rwkv_scan", "rwkv_scan_bwd")
+    else:
+        names = (args.only,)
     t0 = time.perf_counter()
     logs = build.build(names)
     build_s = time.perf_counter() - t0
@@ -2512,7 +2972,27 @@ def main(argv=None) -> int:
         if args.baseline:
             RS_KERNELS = BASELINE_RS_KERNELS
         check_rwkv_scan(torch, dev)
-        print(json.dumps({"rwkv_scan": scan_phase(args.baseline)}))
+        if args.baseline:
+            print(json.dumps({"rwkv_scan": scan_phase(True)}))
+            print(card)
+            return 0
+        check_rwkv_scan_bwd(torch, dev)
+        check_rwkv_scan_bwd_launches(torch, dev)
+        print(json.dumps({"rwkv_scan": scan_phase(),
+                          "rwkv_scan_bwd": scan_bwd_phase()}))
+        print(card)
+        return 0
+    if args.only == "train":
+        check_rwkv_scan(torch, dev)
+        t0 = time.perf_counter()
+        check_rwkv_scan_bwd(torch, dev)
+        print(f"[run] rwkv_scan_bwd checks {time.perf_counter() - t0:.1f} s")
+        check_rwkv_scan_bwd_launches(torch, dev)
+        t = train_phase(torch)
+        print_train(t)
+        tp = train_profiled(torch, t)
+        print(json.dumps({"train": dict(t, profiled=tp)}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
     errs = {"flash_decode": check_flash_decode(torch, dev)}
@@ -2521,7 +3001,8 @@ def main(argv=None) -> int:
         print(card)
         return 0
     errs.update({"rowstream_matmul": check_rowstream(torch, dev),
-                 "rwkv_scan": check_rwkv_scan(torch, dev)})
+                 "rwkv_scan": check_rwkv_scan(torch, dev),
+                 "rwkv_scan_bwd": check_rwkv_scan_bwd(torch, dev)})
     check_rowstream_norms(torch, dev)
     if args.only == "zamba2":
         z = zamba2_phase(torch)
@@ -2590,6 +3071,10 @@ def main(argv=None) -> int:
 
     z = zamba2_phase(torch)
     cross = {name: cross_phase(torch, name) for name in (WHISPER, MLLAMA)}
+    t0 = time.perf_counter()
+    train = train_phase(torch, FULL_RUN_BWD_LAUNCHES)
+    print_train(train)
+    train_s = time.perf_counter() - t0
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -2634,6 +3119,12 @@ def main(argv=None) -> int:
     works = {name: numbers(w) for name, w in works.items()}
     del params, pf["tokens"]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_prof = train_profiled(torch, train)
+    works["rwkv_scan_bwd"] = train_prof["rwkv_scan_bwd"]
+    check_rwkv_scan_bwd_launches(torch, dev)
+    train_s += time.perf_counter() - t0
+    print(f"[run] the training phases took {train_s:.0f} s")
 
     # qwen2-7b and granite again, from the same seed, for their profiled
     # parts.
@@ -2692,11 +3183,15 @@ def main(argv=None) -> int:
              "whisper-small serve": cross[WHISPER]["serve"]["counts"],
              "whisper-small forward": cross[WHISPER]["forward"]["counts"],
              "llama-3.2-vision serve": cross[MLLAMA]["serve"]["counts"],
-             "llama-3.2-vision forward": cross[MLLAMA]["forward"]["counts"]}
+             "llama-3.2-vision forward": cross[MLLAMA]["forward"]["counts"],
+             "rwkv6-3b train": train["counts"]}
+    # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
+    # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
                 "rowstream_matmul":
                     "src/repro/kernels/rowstream_matmul/kernel.py:49",
-                "rwkv_scan": "src/repro/kernels/rwkv_scan/kernel.py:93"}
+                "rwkv_scan": "src/repro/kernels/rwkv_scan/kernel.py:93",
+                "rwkv_scan_bwd": "src/repro/kernels/rwkv_scan/kernel.py:93"}
     kernels = []
     for name, line in replaces.items():
         t = works[name]
@@ -2719,6 +3214,11 @@ def main(argv=None) -> int:
             for m, cp in cross_prof.items():
                 entry[f"on_{m}_step"] = cp["works"][f"{name} on {m}"]
                 entry[f"{m}_products"] = cp["products"]
+        if name == "rwkv_scan_bwd":
+            entry["gradient_of"] = "rwkv_scan"
+            entry["train"] = {k: v for k, v in train.items()
+                              if k not in ("counts", "per_step")}
+            entry["train_split"] = train_prof["split"]
         if name == "flash_decode":
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
@@ -2754,12 +3254,18 @@ def init_params(torch, cfg) -> dict:
 
 
 def per_step(cfg) -> dict:
-    """Each kernel's launches in one decode step of `cfg`."""
+    """Each kernel's launches in one decode step of `cfg`: no rwkv_scan,
+    and no backward."""
+    return dict(_rowstream_flash_per_step(cfg), rwkv_scan=0,
+                rwkv_scan_bwd=0)
+
+
+def _rowstream_flash_per_step(cfg) -> dict:
     if cfg.family == "audio":
         # Per layer self q, k, v, o, cross q, o and the MLP's up and down;
         # a self and a cross flash_decode; plus the tied head.
         return {"flash_decode": 2 * cfg.n_layers,
-                "rowstream_matmul": 8 * cfg.n_layers + 1, "rwkv_scan": 0}
+                "rowstream_matmul": 8 * cfg.n_layers + 1}
     if cfg.family == "vlm":
         # A dense layer's seven per self layer; q, o and the SwiGLU's three
         # per cross layer (its K/V are precomputed); plus the head.
@@ -2767,19 +3273,16 @@ def per_step(cfg) -> dict:
         k, n_units = mllama._pattern(cfg)
         n_self = n_units * (k - 1)
         return {"flash_decode": n_self + n_units,
-                "rowstream_matmul": 7 * n_self + 5 * n_units + 1,
-                "rwkv_scan": 0}
+                "rowstream_matmul": 7 * n_self + 5 * n_units + 1}
     rm = RM_PER_LAYER[cfg.name] * cfg.n_layers + 1
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2
         _, n_shared = zamba2._pattern(cfg)
         return {"flash_decode": n_shared,
-                "rowstream_matmul": rm + len(SHARED_PRODUCTS) * n_shared,
-                "rwkv_scan": 0}
+                "rowstream_matmul": rm + len(SHARED_PRODUCTS) * n_shared}
     if cfg.family == "ssm":
-        return {"flash_decode": 0, "rowstream_matmul": rm, "rwkv_scan": 0}
-    return {"flash_decode": cfg.n_layers, "rowstream_matmul": rm,
-            "rwkv_scan": 0}
+        return {"flash_decode": 0, "rowstream_matmul": rm}
+    return {"flash_decode": cfg.n_layers, "rowstream_matmul": rm}
 
 
 def print_forward(name: str, f: dict) -> None:

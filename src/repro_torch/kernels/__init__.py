@@ -28,8 +28,9 @@ class LaunchCounter:
 def launch_counters() -> dict[str, LaunchCounter]:
     from .flash_decode.ops import LAUNCHES as fd
     from .rowstream_matmul.ops import LAUNCHES as rm
+    from .rwkv_scan.ops import BWD_LAUNCHES as rsb
     from .rwkv_scan.ops import LAUNCHES as rs
-    return {c.name: c for c in (fd, rm, rs)}
+    return {c.name: c for c in (fd, rm, rs, rsb)}
 
 
 def reset_launch_counters() -> None:

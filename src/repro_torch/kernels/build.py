@@ -20,7 +20,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
-KERNELS = ("flash_decode", "rowstream_matmul", "rwkv_scan")
+KERNELS = ("flash_decode", "rowstream_matmul", "rwkv_scan",
+           "rwkv_scan_bwd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

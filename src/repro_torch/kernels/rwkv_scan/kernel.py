@@ -1,12 +1,15 @@
-"""Launch of the CUDA RWKV6 scan (``csrc/rwkv_scan.cu``).
+"""Launch of the CUDA RWKV6 scan (``csrc/rwkv_scan.cu``) and of its
+backward (``csrc/rwkv_scan_bwd.cu``).
 
-Replaces the Pallas TPU kernel ``rwkv_scan``
-(``src/repro/kernels/rwkv_scan/kernel.py``). The CUDA source says how the
-scan is split; this module plans the launch (one block per (b, h), the
-tiles a chunk is cut into, the block's shared memory), moves the operands
-to the (b, H, s, 64) layout the kernel streams (padding a smaller head dim
-to 64 with r = k = v = 0, w = 1 and u = 0), and launches it on PyTorch's
-current stream.
+The forward replaces the Pallas TPU kernel ``rwkv_scan``
+(``src/repro/kernels/rwkv_scan/kernel.py``); the backward computes the
+gradient that the JAX package takes by autodiff of its jnp scan. The CUDA
+sources say how each is split; this module plans the forward's launch (one
+block per (b, h), the tiles a chunk is cut into, the block's shared
+memory), moves the operands to the (b, H, s, 64) layout both kernels
+stream (padding a smaller head dim to 64 with r = k = v = 0, w = 1 and
+u = 0, and do = dS = 0 for the backward), launches them on PyTorch's
+current stream, and copies the gradients back to (b, s, H, hd).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ SCRATCH_FLOATS = 96 * (MAX_HEAD_DIM + 4)
 SM_SMEM = 233472
 BLOCK_SMEM_MAX = 232448
 SMEM_RESERVED = 1024
+BWD_CHUNK = 4          # csrc/rwkv_scan_bwd.cu RC: tokens per checkpoint
 
 
 @dataclass(frozen=True)
@@ -158,3 +162,60 @@ def launch(fn, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o[..., :hd]
         s_final = s_final[:, :, :hd, :hd].contiguous()
     return o.transpose(1, 2), s_final
+
+
+@functools.cache
+def _bwd_function():
+    fn = build.load("rwkv_scan_bwd").rwkv_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_scratch_floats(b: int, H: int, s: int) -> int:
+    """Floats of the backward's checkpoint scratch: the (64, 64) fp32
+    state at the start of every BWD_CHUNK tokens of each (b, h)."""
+    return b * H * -(-s // BWD_CHUNK) * MAX_HEAD_DIM * MAX_HEAD_DIM
+
+
+def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                  dS: torch.Tensor | None) -> tuple:
+    """Launch the backward kernel on checked CUDA tensors (see ``ops``):
+    r/k/v/w and do (b, s, H, hd) in one dtype, u (H, hd), dS (b, H, hd,
+    hd) or None for zero. Returns (dr, dk, dv, dw) contiguous (b, s, H, hd)
+    in r's dtype and du (H, hd) in u's dtype. du is summed over b from the
+    kernel's per-(b, h) partials by ``sum(0)``, a fixed-order reduction,
+    so two calls give identical bits."""
+    b, s, H, hd = r.shape
+    rr, kk, vv, dd = (_heads_major(x, 0.0) for x in (r, k, v, do))
+    ww = _heads_major(w, 1.0)
+    u32 = torch.zeros((H, MAX_HEAD_DIM), dtype=torch.float32,
+                      device=r.device)
+    u32[:, :hd] = u
+    dS32 = None
+    if dS is not None:
+        dS32 = torch.zeros((b, H, MAX_HEAD_DIM, MAX_HEAD_DIM),
+                           dtype=torch.float32, device=r.device)
+        dS32[:, :, :hd, :hd] = dS
+    grads = torch.empty((4, b, H, s, MAX_HEAD_DIM), dtype=r.dtype,
+                        device=r.device)
+    du_part = torch.empty((b, H, MAX_HEAD_DIM), dtype=torch.float32,
+                          device=r.device)
+    ckpt = torch.empty((bwd_scratch_floats(b, H, s),), dtype=torch.float32,
+                       device=r.device)
+    dr, dk, dv, dw = grads.unbind(0)
+    err = _bwd_function()(
+        rr.data_ptr(), kk.data_ptr(), vv.data_ptr(), ww.data_ptr(),
+        u32.data_ptr(), dd.data_ptr(),
+        dS32.data_ptr() if dS32 is not None else None,
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du_part.data_ptr(), ckpt.data_ptr(), b, H, s, DTYPE_CODES[r.dtype],
+        torch.cuda.current_stream(r.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"rwkv_scan_bwd launch failed: CUDA error {err} "
+                           f"for r {tuple(r.shape)} {r.dtype}")
+    back = grads[..., :hd].transpose(2, 3).contiguous()   # (4, b, s, H, hd)
+    du = du_part.sum(0)[:, :hd].to(u.dtype)
+    return (*back.unbind(0), du)

@@ -1,14 +1,44 @@
-"""Public wrapper of the RWKV6 time-mix scan: the CUDA kernel for CUDA
-tensors, the plain PyTorch version for CPU tensors."""
+"""Public wrapper of the RWKV6 time-mix scan: the CUDA kernels for CUDA
+tensors, the plain PyTorch versions for CPU tensors, forward and
+backward."""
 from __future__ import annotations
 
 import torch
 
 from .. import DTYPE_CODES, LaunchCounter
 from . import kernel
-from .ref import rwkv_scan_ref
+from .ref import rwkv_scan_bwd_ref, rwkv_scan_ref
 
 LAUNCHES = LaunchCounter("rwkv_scan")
+BWD_LAUNCHES = LaunchCounter("rwkv_scan_bwd")
+
+
+class _RwkvScan(torch.autograd.Function):
+    """The scan with its gradient: forward through ``csrc/rwkv_scan.cu``
+    and backward through ``csrc/rwkv_scan_bwd.cu`` on CUDA tensors, through
+    ``rwkv_scan_ref`` and ``rwkv_scan_bwd_ref`` on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        if r.device.type == "cpu":
+            return rwkv_scan_ref(r, k, v, w, u)
+        out = kernel.rwkv_scan(r, k, v, w, u, chunk)
+        LAUNCHES.count += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, dS):
+        r, k, v, w, u = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.to(r.dtype)
+        if r.device.type == "cpu":
+            grads = rwkv_scan_bwd_ref(r, k, v, w, u, do, dS)
+        else:
+            grads = kernel.rwkv_scan_bwd(r, k, v, w, u, do, dS)
+            BWD_LAUNCHES.count += 1
+        return (*grads, None)
 
 
 def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -21,7 +51,10 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the result does not depend on it. Returns (o (b, s, H, hd) in r's
     dtype, final state (b, H, hd, hd) float32).
 
-    There is no backward kernel: CUDA inputs that require grad raise."""
+    Differentiable in r, k, v, w and u, with a gradient for both results
+    (a missing one counts as zero): on CUDA tensors the backward kernel
+    ``rwkv_scan_bwd`` computes it (counted in BWD_LAUNCHES), on CPU
+    tensors ``rwkv_scan_bwd_ref``."""
     if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape) \
             or 0 in r.shape:
         raise ValueError(f"rwkv_scan: r/k/v/w shapes {tuple(r.shape)}, "
@@ -49,14 +82,6 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("rwkv_scan: inputs on different devices")
     if not all(x.is_contiguous() for x in (r, k, v, w, u)):
         raise ValueError("rwkv_scan: inputs must be contiguous")
-    if r.device.type == "cpu":
-        return rwkv_scan_ref(r, k, v, w, u)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rwkv_scan: unsupported device {r.device}")
-    if torch.is_grad_enabled() \
-            and any(x.requires_grad for x in (r, k, v, w, u)):
-        raise RuntimeError("rwkv_scan: no backward kernel; CUDA inputs "
-                           "that require grad are not supported")
-    out = kernel.rwkv_scan(r, k, v, w, u, chunk)
-    LAUNCHES.count += 1
-    return out
+    return _RwkvScan.apply(r, k, v, w, u, chunk)

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the RWKV6 time-mix scan: the sequential
-recurrence, one token at a time, in fp32.
+"""Plain PyTorch versions of the RWKV6 time-mix scan and of its backward:
+the sequential recurrence, one token at a time, in fp32.
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     o_t = r_t (diag(u) k_t^T v_t + S_{t-1})
@@ -24,6 +24,51 @@ def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o[:, t] = torch.einsum("bhk,bhkv->bhv", r32[:, t], S + u32 * kv)
         S = w32[:, t, :, :, None] * S + kv
     return o.to(r.dtype), S
+
+
+def rwkv_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                      dS: torch.Tensor | None = None) -> tuple:
+    """Gradients of :func:`rwkv_scan_ref` given do (b, s, H, hd), the
+    gradient of o, and dS (b, H, hd, hd), the gradient of the final state
+    (None: zero). A walk forward keeps every S_{t-1}; the walk back carries
+    G_t = dL/dS_t from G_{s-1} = dS:
+
+        dr_t = S_{t-1} do_t + u * k_t (v_t . do_t)
+        dk_t = G_t v_t + u * r_t (v_t . do_t)
+        dv_t = G_t^T k_t + (sum_i r_t u k_t) do_t
+        dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+        du = sum over b and t of r_t * k_t (v_t . do_t)
+        G_{t-1} = diag(w_t) G_t + r_t^T do_t
+
+    All in fp32. Returns (dr, dk, dv, dw) (b, s, H, hd) in r's dtype and du
+    (H, hd) in u's dtype."""
+    b, s, H, hd = r.shape
+    r32, k32, v32, w32, do32 = (x.float() for x in (r, k, v, w, do))
+    u32 = u.float()
+    states = [torch.zeros((b, H, hd, hd), dtype=torch.float32,
+                          device=r.device)]
+    for t in range(s - 1):
+        states.append(w32[:, t, :, :, None] * states[-1]
+                      + k32[:, t, :, :, None] * v32[:, t, :, None, :])
+    G = (dS.float().clone() if dS is not None
+         else torch.zeros_like(states[0]))
+    grads = [torch.empty((b, s, H, hd), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((H, hd), dtype=torch.float32, device=r.device)
+    for t in reversed(range(s)):
+        rt, kt, vt, wt, dot = (x[:, t] for x in (r32, k32, v32, w32, do32))
+        Sp = states[t]
+        vdo = (vt * dot).sum(-1, keepdim=True)                  # (b, H, 1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", Sp, dot) + u32 * kt * vdo
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + u32 * rt * vdo
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) \
+            + (rt * u32 * kt).sum(-1, keepdim=True) * dot
+        dw[:, t] = (G * Sp).sum(-1)
+        du += (rt * kt * vdo).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dot[..., None, :]
+    return (*(g.to(r.dtype) for g in grads), du.to(u.dtype))
 
 
 def rwkv_scan_chunked_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

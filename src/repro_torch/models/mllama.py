@@ -22,9 +22,10 @@ request; the serve driver, as the reference's, never calls it.
 
 Parameters are a dict of tensors with the reference's structure: stacked
 ``self_blocks`` (n_units * (k - 1), ...) and ``cross_blocks`` (n_units,
-...), the gates stacked as (n_units,) fp32. The reference's ``remat``
-option waits for the training slice, its ``param_specs``/``cache_specs``
-for the distributed one.
+...), the gates stacked as (n_units,) fp32. ``forward`` takes the
+reference's ``remat`` option (each self and cross layer recomputed in the
+backward); its ``param_specs``/``cache_specs`` wait for the distributed
+slice.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ import torch
 from ..distributed.sharding import padded_vocab
 from .layers import (attn_params, cross_attention, cross_decode_attention,
                      dense_init, ffn_params, matmul, rmsnorm, swiglu)
-from .transformer import (_block_forward, _dtype, _index, _stack,
-                          block_decode)
+from .transformer import (_block_forward, _dtype, _index, _layers, _stack,
+                          block_decode, remat_call)
 
 
 def _pattern(cfg) -> tuple[int, int]:
@@ -105,20 +106,22 @@ def _cross_fwd(cfg, h: torch.Tensor, bp: dict,
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor,
-            vision_embeds: torch.Tensor) -> torch.Tensor:
+            vision_embeds: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """tokens: (b, s); vision_embeds: (b, n_vis, d_model) -> logits
-    (b, s, V_padded)."""
+    (b, s, V_padded). With `remat` each self and cross layer is recomputed
+    in the backward."""
     b, s = tokens.shape
     k, n_units = _pattern(cfg)
     h = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
+    selfs = _layers(params["self_blocks"])
+    crosses = _layers(params["cross_blocks"])
     for u in range(n_units):
         for j in range(k - 1):
-            h = _block_forward(cfg, h, _index(params["self_blocks"],
-                                              u * (k - 1) + j), positions)
-        h = _cross_fwd(cfg, h, _index(params["cross_blocks"], u),
-                       vision_embeds)
+            h = remat_call(remat, _block_forward, cfg, h,
+                           selfs[u * (k - 1) + j], positions)
+        h = remat_call(remat, _cross_fwd, cfg, h, crosses[u], vision_embeds)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return torch.matmul(h, params["lm_head"])
 

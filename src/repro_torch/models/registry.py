@@ -3,8 +3,8 @@ counterpart of ``repro.models.registry``.
 
     adapter = get_adapter("rwkv6-3b")
     params  = adapter.init(torch.Generator("cuda").manual_seed(0))
-    logits  = adapter.forward(params, batch)          # prefill
-    loss    = adapter.loss(params, batch)             # forward only
+    logits  = adapter.forward(params, batch)          # train / prefill
+    loss    = adapter.loss(params, batch, remat=True) # differentiable
     state   = adapter.init_decode_state(batch, max_seq, device="cuda")
     logits, state = adapter.decode(params, {"tokens": tokens}, state, pos)
 
@@ -19,10 +19,11 @@ runs ``models/zamba2``, whose decode state holds fp32 SSM states, conv
 tails and a KV cache in ``dtype`` for each application of its shared
 attention block; the vlm family runs ``models/mllama`` and the audio
 family ``models/whisper``, whose decode states add a cross KV (zeros until
-the caller fills it from ``precompute_cross_kv``). The reference's
-``input_structs``, ``supports``, ``param_specs`` and ``state_specs`` wait
-for the launch-tooling and distributed slices, ``loss``'s gradient for
-the training slice.
+the caller fills it from ``precompute_cross_kv``). ``remat``
+recomputes each layer (block) in the backward, as the reference's
+``jax.checkpoint`` does; ``launch/train.py`` trains through ``loss``. The
+reference's ``input_structs``, ``supports``, ``param_specs`` and
+``state_specs`` wait for the launch-tooling and distributed slices.
 """
 from __future__ import annotations
 
@@ -51,16 +52,16 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(lse - picked)
 
 
-def _tfm_forward(params, cfg, batch):
-    return transformer.forward(params, cfg, batch["tokens"])
+def _tfm_forward(params, cfg, batch, remat):
+    return transformer.forward(params, cfg, batch["tokens"], remat)
 
 
 def _tfm_decode(params, cfg, batch, state, pos):
     return transformer.decode_step(params, cfg, batch["tokens"], state, pos)
 
 
-def _rwkv_forward(params, cfg, batch):
-    return rwkv6.forward(params, cfg, batch["tokens"])
+def _rwkv_forward(params, cfg, batch, remat):
+    return rwkv6.forward(params, cfg, batch["tokens"], remat)
 
 
 def _rwkv_decode(params, cfg, batch, state, pos):
@@ -71,25 +72,26 @@ def _rwkv_init_state(cfg, batch, max_seq, dtype, device):
     return rwkv6.init_state(cfg, batch, device)
 
 
-def _zamba_forward(params, cfg, batch):
-    return zamba2.forward(params, cfg, batch["tokens"])
+def _zamba_forward(params, cfg, batch, remat):
+    return zamba2.forward(params, cfg, batch["tokens"], remat)
 
 
 def _zamba_decode(params, cfg, batch, state, pos):
     return zamba2.decode_step(params, cfg, batch["tokens"], state, pos)
 
 
-def _mllama_forward(params, cfg, batch):
+def _mllama_forward(params, cfg, batch, remat):
     return mllama.forward(params, cfg, batch["tokens"],
-                          batch["vision_embeds"])
+                          batch["vision_embeds"], remat)
 
 
 def _mllama_decode(params, cfg, batch, state, pos):
     return mllama.decode_step(params, cfg, batch["tokens"], state, pos)
 
 
-def _whisper_forward(params, cfg, batch):
-    return whisper.forward(params, cfg, batch["tokens"], batch["frames"])
+def _whisper_forward(params, cfg, batch, remat):
+    return whisper.forward(params, cfg, batch["tokens"], batch["frames"],
+                           remat)
 
 
 def _whisper_decode(params, cfg, batch, state, pos):
@@ -131,14 +133,17 @@ class ModelAdapter:
     def init(self, gen: torch.Generator) -> dict:
         return self._fns["init"](self.cfg, gen)
 
-    def forward(self, params: dict, batch: dict) -> torch.Tensor:
-        """Logits (b, s, V_padded) of a whole sequence (prefill)."""
-        return self._fns["forward"](params, self.cfg, batch)
+    def forward(self, params: dict, batch: dict,
+                remat: bool = False) -> torch.Tensor:
+        """Logits (b, s, V_padded) of a whole sequence (train / prefill);
+        with `remat` each layer is recomputed in the backward."""
+        return self._fns["forward"](params, self.cfg, batch, remat)
 
-    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+    def loss(self, params: dict, batch: dict,
+             remat: bool = False) -> torch.Tensor:
         """Mean next-token cross entropy of ``forward``'s logits against
         batch["labels"], padded vocab entries masked."""
-        return _xent(self.forward(params, batch), batch["labels"],
+        return _xent(self.forward(params, batch, remat), batch["labels"],
                      self.cfg.vocab)
 
     def init_decode_state(self, batch: int, max_seq: int,

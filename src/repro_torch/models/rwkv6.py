@@ -10,11 +10,13 @@ The recurrence
 
 runs in two forms:
 
-* ``forward`` (prefill) is chunk-parallel where the reference scans token
-  by token: the token shift, the mixes and every projection run over all
-  b * s rows at once (``torch.matmul``, as the reference leaves them to
-  XLA), and the whole prompt's recurrence goes through the ``rwkv_scan``
-  kernel wrapper, one launch per layer.
+* ``forward`` (prefill and training) is chunk-parallel where the reference
+  scans token by token: the token shift, the mixes and every projection
+  run over all b * s rows at once (``torch.matmul``, as the reference
+  leaves them to XLA), and the whole prompt's recurrence goes through the
+  ``rwkv_scan`` kernel wrapper, one launch per layer, whose gradient is
+  the ``rwkv_scan_bwd`` kernel. With ``remat`` each layer is recomputed in
+  the backward, so a layer's forward scan runs twice per backward.
 * ``decode_step`` updates the state once per token as the reference does;
   every weight product goes through ``layers.matmul`` (the row-stream
   kernel): 10 per layer plus the head.
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from ..distributed.sharding import padded_vocab
 from ..kernels.rwkv_scan.ops import rwkv_scan
 from .layers import dense_init, matmul, rmsnorm
-from .transformer import _dtype, _index, _stack
+from .transformer import _dtype, _index, _layers, _stack, remat_call
 
 LORA_RANK = 64
 HEAD_DIM = 64
@@ -175,12 +177,14 @@ def _layer_seq(bp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
 # Public API
 # ---------------------------------------------------------------------------
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (b, s) int. Returns logits (b, s, V_padded)."""
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (b, s) int. Returns logits (b, s, V_padded). With `remat`
+    each layer is recomputed in the backward (the reference's
+    jax.checkpoint of its layer)."""
     h = params["embed"][tokens]
-    blocks = params["blocks"]
-    for i in range(blocks["wr"].shape[0]):
-        h = _layer_seq(_index(blocks, i), cfg, h)
+    for bp in _layers(params["blocks"]):
+        h = remat_call(remat, _layer_seq, bp, cfg, h)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return torch.matmul(h, params["lm_head"])
 

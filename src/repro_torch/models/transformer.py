@@ -5,14 +5,16 @@ qwen3, granite-moe, phi3.5-moe): init, the full-sequence ``forward``
 The PyTorch counterpart of ``repro.models.transformer``. Parameters are a
 dict of tensors with the reference's structure: the per-layer ``blocks``
 leaves are stacked along a leading layer dim. ``forward`` runs its
-products through torch.matmul (the JAX package has no prefill kernel);
-``decode_step`` runs its weight products through the row-stream kernel
-and its attention through the flash-decode kernel. The reference's
-``remat`` option of ``forward`` waits for the training slice.
+products through torch.matmul (the JAX package has no prefill kernel) and
+takes the reference's ``remat`` option (each block recomputed in the
+backward, :func:`remat_call`); ``decode_step`` runs its weight products
+through the row-stream kernel and its attention through the flash-decode
+kernel.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import padded_vocab
 from . import moe as moe_lib
@@ -85,17 +87,41 @@ def _block_forward(cfg, h: torch.Tensor, bp: dict,
     return h + f
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (b, s) int -> logits (b, s, V_padded)."""
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (b, s) int -> logits (b, s, V_padded). With `remat` each
+    block is recomputed in the backward (the reference's jax.checkpoint of
+    its block)."""
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    blocks = params["blocks"]
-    for i in range(blocks["attn_norm"].shape[0]):
-        h = _block_forward(cfg, h, _index(blocks, i), positions)
+    for bp in _layers(params["blocks"]):
+        h = remat_call(remat, _block_forward, cfg, h, bp, positions)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return torch.matmul(h, params["lm_head"])
+
+
+def remat_call(remat: bool, fn, *args):
+    """fn(*args), recomputed in the backward when `remat` (the
+    counterpart of ``jax.checkpoint``). The forwards draw no random
+    numbers, so no RNG state is kept for the recompute."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _layers(tree: dict) -> list[dict]:
+    """The per-layer dicts of a stacked tree, each leaf unbound once along
+    its layer dim. Under autograd the backward of one ``unbind`` is one
+    ``stack`` into a buffer of the stacked leaf's size, where a slice per
+    layer (:func:`_index`) would make a full-size zero gradient for each
+    layer."""
+    flat = {k: _layers(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(flat.values())))
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

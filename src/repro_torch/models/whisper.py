@@ -23,8 +23,9 @@ serve driver, as the reference's, never calls it.
 
 Parameters are a dict of tensors with the reference's structure, the
 per-layer ``encoder`` and ``decoder`` leaves stacked along a leading layer
-dim. The reference's ``remat`` option waits for the training slice, its
-``param_specs``/``cache_specs`` for the distributed one.
+dim. ``encode`` and ``forward`` take the reference's ``remat`` option (each
+encoder and decoder block recomputed in the backward); its
+``param_specs``/``cache_specs`` wait for the distributed slice.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from .layers import (CHUNKED_ATTN_THRESHOLD, _cached_attention_local,
                      attention_scores, causal_mask, chunked_attention,
                      cross_decode_attention, dense_init, gelu_mlp, layernorm,
                      matmul)
-from .transformer import _dtype, _index, _stack
+from .transformer import _dtype, _index, _layers, _stack, remat_call
 
 
 def sinusoid_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -180,14 +181,15 @@ def _enc_block(cfg, h: torch.Tensor, bp: dict) -> torch.Tensor:
     return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h), torch.matmul)
 
 
-def encode(params: dict, cfg, frames: torch.Tensor) -> torch.Tensor:
-    """frames: (b, n_frames, d_model) stub embeddings -> encoder output."""
+def encode(params: dict, cfg, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """frames: (b, n_frames, d_model) stub embeddings -> encoder output.
+    With `remat` each block is recomputed in the backward."""
     b, s, _ = frames.shape
     pos = torch.arange(s, device=frames.device).expand(b, s)
     h = frames + sinusoid_pos(pos, cfg.d_model).to(frames.dtype)
-    enc = params["encoder"]
-    for i in range(enc["ln_attn"]["w"].shape[0]):
-        h = _enc_block(cfg, h, _index(enc, i))
+    for bp in _layers(params["encoder"]):
+        h = remat_call(remat, _enc_block, cfg, h, bp)
     return _ln(params["ln_enc"], h)
 
 
@@ -199,19 +201,19 @@ def _dec_block(cfg, h: torch.Tensor, bp: dict, enc: torch.Tensor,
     return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h), torch.matmul)
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor,
-            frames: torch.Tensor) -> torch.Tensor:
+def forward(params: dict, cfg, tokens: torch.Tensor, frames: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
     """Teacher-forced forward: (b, s) tokens + frames -> logits
-    (b, s, V_padded)."""
-    enc = encode(params, cfg, frames)
+    (b, s, V_padded). With `remat` each encoder and decoder block is
+    recomputed in the backward."""
+    enc = encode(params, cfg, frames, remat)
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     h = params["embed"][tokens] + sinusoid_pos(pos, cfg.d_model).to(
         _dtype(cfg))
     mask = causal_mask(s, s, device=tokens.device)
-    dec = params["decoder"]
-    for i in range(dec["ln_attn"]["w"].shape[0]):
-        h = _dec_block(cfg, h, _index(dec, i), enc, mask)
+    for bp in _layers(params["decoder"]):
+        h = remat_call(remat, _dec_block, cfg, h, bp, enc, mask)
     h = _ln(params["ln_dec"], h)
     return torch.matmul(h, params["embed"].T)
 

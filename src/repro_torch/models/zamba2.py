@@ -21,9 +21,10 @@ row-stream kernel, and the shared block's cached attention through
 prefill's products take torch.matmul, as the other families' do.
 
 Parameters are a dict of tensors with the reference's structure, the
-per-layer ``blocks`` leaves stacked along a leading layer dim. The
-reference's ``remat`` option waits for the training slice, its
-``param_specs``/``state_specs`` for the distributed one.
+per-layer ``blocks`` leaves stacked along a leading layer dim. ``forward``
+takes the reference's ``remat`` option (each Mamba2 block recomputed in
+the backward); its ``param_specs``/``state_specs`` wait for the
+distributed slice.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from ..configs.base import SSMConfig
 from ..distributed.sharding import padded_vocab
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
                      matmul, rmsnorm, self_attention, swiglu)
-from .transformer import _dtype, _index, _stack
+from .transformer import _dtype, _index, _layers, _stack, remat_call
 
 # Tokens of one prompt whose SSD updates (B outer x) * dt are formed at once
 # in _ssd_scan: 4 x 64 tokens of zamba2-1.2b take 256 MB in fp32.
@@ -119,7 +120,9 @@ def _ssd_scan(bp: dict, cfg, xc: torch.Tensor, Bc: torch.Tensor,
     """Sequential SSD over time. xc: (b, s, din); Bc/Cc: (b, s, N);
     dt_raw: (b, s, nh); H0: (b, nh, hd, N) fp32. Returns y (b, s, din) in
     xc's dtype and the final state, which is H0 itself, updated in place
-    (the decode state's own layer slice, or a fresh zero state).
+    (the decode state's own layer slice, or a fresh zero state), unless
+    autograd records the scan (a training forward): then each token's
+    state is a new tensor, with the same arithmetic.
 
     The terms that do not depend on the state are formed for many tokens
     at once: the fp32 casts, the decays a = exp(dt A), D x, and the
@@ -138,6 +141,9 @@ def _ssd_scan(bp: dict, cfg, xc: torch.Tensor, Bc: torch.Tensor,
     aT = torch.exp(dtT * A)[..., None, None]
     CT = Cc.float().transpose(0, 1)[:, :, None, :, None].expand(
         s, b, nh, N, 1).reshape(s, b * nh, N, 1)
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xc, Bc, Cc, dt_raw, H0, bp["A_log"],
+                                  bp["dt_bias"]))
     Hs = H0
     H3 = Hs.view(b * nh, hd, N)
     ys = []
@@ -147,7 +153,11 @@ def _ssd_scan(bp: dict, cfg, xc: torch.Tensor, Bc: torch.Tensor,
         dBx *= dtT[c0:c1, ..., None, None]                       # (c,b,nh,hd,N)
         for dBx_t, a_t, C_t in zip(dBx.unbind(0), aT[c0:c1].unbind(0),
                                    CT[c0:c1].unbind(0)):
-            Hs.mul_(a_t).add_(dBx_t)
+            if record:
+                Hs = Hs * a_t + dBx_t
+                H3 = Hs.view(b * nh, hd, N)
+            else:
+                Hs.mul_(a_t).add_(dBx_t)
             ys.append(torch.bmm(H3, C_t))                        # (b*nh,hd,1)
     y = torch.stack(ys).view(s, b, nh, hd).transpose(0, 1) \
         + bp["D"][:, None] * xh                                  # (b,s,nh,hd)
@@ -201,17 +211,20 @@ def _pattern(cfg) -> tuple[int, int]:
     return k, cfg.n_layers // k
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
     """tokens: (b, s) int -> logits (b, s, V_padded). n_shared units of
-    (k mamba blocks + the shared block), then the remaining blocks."""
+    (k mamba blocks + the shared block), then the remaining blocks. With
+    `remat` each Mamba2 block is recomputed in the backward, as the
+    reference checkpoints its Mamba2 block (not the shared one)."""
     b, s = tokens.shape
     h = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     k, n_shared = _pattern(cfg)
-    blocks = params["blocks"]
+    layers = _layers(params["blocks"])
     for i in range(cfg.n_layers):
-        h = _mamba_block_seq(_index(blocks, i), cfg, h)
+        h = remat_call(remat, _mamba_block_seq, layers[i], cfg, h)
         if i < n_shared * k and (i + 1) % k == 0:
             h = _shared_block_seq(params["shared"], cfg, h, positions)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

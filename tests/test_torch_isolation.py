@@ -49,7 +49,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_every_port_module_is_scanned():
     """The scan above globs the package: the modules of each slice are in
     it, the MoE family's, the prefill path's, the hybrid family's, the
-    row-paged cache's and the vlm and audio families' included."""
+    row-paged cache's, the vlm and audio families' and the training
+    path's included."""
     names = {str(p.relative_to(REPO / "src" / "repro_torch"))
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"models/moe.py", "models/transformer.py", "models/layers.py",
@@ -59,7 +60,10 @@ def test_every_port_module_is_scanned():
             "serve/kv_cache.py", "serve/batching.py",
             "workloads/stream.py", "models/whisper.py", "models/mllama.py",
             "configs/whisper_small.py", "configs/llama32_vision_90b.py",
-            "models/registry.py"} <= names
+            "models/registry.py", "data/pipeline.py", "data/__init__.py",
+            "train/optimizer.py", "train/grad_compress.py",
+            "train/train_step.py", "train/__init__.py",
+            "launch/train.py"} <= names
     assert REPO / "chip_smoke.py" in PORT_FILES
 
 
@@ -121,8 +125,12 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                  torch.ones((1, 2, 8, 16)), 3)
     x = torch.ones((1, 4, 2, 16))
     rwkv_scan(x, x, x, x * 0.5, torch.zeros((2, 16)))
+    r = x.clone().requires_grad_(True)
+    rwkv_scan(r, x, x, x * 0.5, torch.zeros((2, 16)))[0].sum().backward()
+    assert r.grad is not None
     counters = launch_counters()
-    assert set(counters) == {"flash_decode", "rowstream_matmul", "rwkv_scan"}
+    assert set(counters) == {"flash_decode", "rowstream_matmul", "rwkv_scan",
+                             "rwkv_scan_bwd"}
     assert all(c.count == 0 for c in counters.values())
 
 
