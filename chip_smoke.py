@@ -132,9 +132,10 @@ the training phases, profiled split and backward timings included (no
 ``ok`` line). ``--baseline``
 runs either on a tree whose kernel predates its redesign (copy this
 script into that tree's root): it leaves out the checks and plan that the
-redesign added (and, for rwkv_scan, the backward) and times the old
-kernel's device kernels (for rwkv_scan also the plain version, the same
-code on both trees).
+redesign added and times the old kernel's device kernels (for
+rwkv_scan_bwd without the plain version, the same code on both trees).
+For rwkv_scan it takes either device kernel name of the forward, and
+checks and times the backward too where that tree has one.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA card, or a directory without the
@@ -177,9 +178,10 @@ RM_KERNELS = ("rowstream_tiles", "rowstream_scalar")
 BASELINE_RM_KERNELS = ("rowstream_kernel", "splitk_reduce")
 RS_KERNELS = ("rwkv_scan_head",)
 RS_BWD_KERNELS = ("rwkv_scan_bwd_head",)
-# rwkv_scan's device kernel before the one-block-per-head design
-# (`--baseline`).
+# rwkv_scan's device kernel before the one-block-per-head design, and
+# rwkv_scan_bwd's before its tiled design (`--baseline`).
 BASELINE_RS_KERNELS = ("rwkv_scan_kernel",)
+BASELINE_RS_BWD_KERNELS = ("rwkv_scan_bwd_head",)
 # Products of one decode step, per layer (plus the head).
 QWEN_PRODUCTS = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                  ("attn", "wo"), ("ffn", "w_gate"), ("ffn", "w_up"),
@@ -1364,12 +1366,12 @@ def scan_phase(baseline=False) -> dict:
     return out
 
 
-def scan_bwd_phase() -> dict:
+def scan_bwd_phase(baseline=False) -> dict:
     """rwkv_scan_bwd alone: the 32 launches of one microbatch of an
     rwkv6-3b training step (b 4 x s 128, fp32, no final-state gradient,
     as the model gives none), each on its own inputs synthesised from a
-    seed with rwkv6's decays: kernel wall and device time, plain time and
-    bound."""
+    seed with rwkv6's decays: kernel wall and device time, plain time
+    (unless `baseline`) and bound."""
     import torch
     from repro_torch.configs.registry_configs import ALL_ARCHS
     cfg = ALL_ARCHS[TRAIN_ARCH]
@@ -1381,12 +1383,15 @@ def scan_bwd_phase() -> dict:
         do = torch.randn(shape, generator=gen, device="cuda")
         launches.append((*x, do, None))
     work = scan_bwd_work(torch, launches)
+    if baseline:
+        del work["plain_one"]
     work["per"] = (f"one rwkv6-3b training microbatch at b {shape[0]} x s "
                    f"{shape[1]}, inputs synthesised with rwkv6's decays")
     time_works({"rwkv_scan_bwd": work})
     n = work["launches_per_step"]
+    plain_ms = None if baseline else work["plain_ms"] / n
     print(f"[time] rwkv_scan_bwd per launch: kernel {work['ms'] / n!r} ms "
-          f"(wall {work['wall_ms'] / n!r}), plain {work['plain_ms'] / n!r} "
+          f"(wall {work['wall_ms'] / n!r}), plain {plain_ms!r} "
           f"ms, bound {work['bound_ms'] / n!r} ms; kernel at "
           f"{work['bound_ms'] / work['ms']!r} of its bound")
     return numbers(work)
@@ -2906,7 +2911,7 @@ def cross_profiled(torch, c: dict) -> dict:
 
 
 def main(argv=None) -> int:
-    global RM_KERNELS, RS_KERNELS
+    global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
@@ -2941,9 +2946,11 @@ def main(argv=None) -> int:
     print(f"[card] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
+    # A baseline tree from before the scan's backward has no rwkv_scan_bwd.
+    has_bwd = (build.CSRC / "rwkv_scan_bwd.cu").exists()
     if args.only in MODEL_ONLY:
         names = build.KERNELS
-    elif args.only in ("rwkv_scan", "train") and not args.baseline:
+    elif args.only in ("rwkv_scan", "train") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
     else:
         names = (args.only,)
@@ -2970,16 +2977,15 @@ def main(argv=None) -> int:
         return 0
     if args.only == "rwkv_scan":
         if args.baseline:
-            RS_KERNELS = BASELINE_RS_KERNELS
+            RS_KERNELS = RS_KERNELS + BASELINE_RS_KERNELS
+            RS_BWD_KERNELS = BASELINE_RS_BWD_KERNELS
         check_rwkv_scan(torch, dev)
-        if args.baseline:
-            print(json.dumps({"rwkv_scan": scan_phase(True)}))
-            print(card)
-            return 0
-        check_rwkv_scan_bwd(torch, dev)
-        check_rwkv_scan_bwd_launches(torch, dev)
-        print(json.dumps({"rwkv_scan": scan_phase(),
-                          "rwkv_scan_bwd": scan_bwd_phase()}))
+        out = {"rwkv_scan": scan_phase(args.baseline)}
+        if has_bwd:
+            check_rwkv_scan_bwd(torch, dev)
+            check_rwkv_scan_bwd_launches(torch, dev)
+            out["rwkv_scan_bwd"] = scan_bwd_phase(args.baseline)
+        print(json.dumps(out))
         print(card)
         return 0
     if args.only == "train":

@@ -2,7 +2,7 @@
 """Diagnostics of the port's rwkv_scan kernel on one NVIDIA GPU, from the
 root of a checkout:
 
-    python3 scripts/rwkv_scan_diagnostics.py [--old OLD.cu]
+    python3 scripts/rwkv_scan_diagnostics.py [--old OLD.cu] [--bwd]
 
 1. Planted faults: variants of ``csrc/rwkv_scan.cu``, built into
    ``build/rwkv_scan_diagnostics/``, that leave out one tile's intra-chunk
@@ -27,6 +27,23 @@ root of a checkout:
    ``rwkv_scan_kernel`` (a block per 16 value columns), has the C
    signature ``rwkv_scan(r, k, v, w, u, o, s_final, b, H, s, hd, chunk,
    dtype, stream)``: whole, its C x C loop left out, and loads only.
+
+4. Planted faults in the backward, ``csrc/rwkv_scan_bwd.cu``: one dw group
+   that skips a decay (after_t left out of after_t c_t), a tile whose S_in
+   is one tile stale (tile 3 copies the state before tile 2), and g4's
+   walk back that skips its decays. Each runs through every case of
+   ``chip_smoke.check_rwkv_scan_bwd`` (with and without dS in turns); the
+   script fails unless the whole kernel passes every case and each fault
+   fails at least one. Then the backward's ablation over the 32 launches
+   of one rwkv6-3b training microbatch (``chip_smoke.scan_bwd_phase``'s
+   shape and decays): the whole kernel; no per-channel epilogue of the
+   state warps; no state-free per-channel terms of the prep warps (dr's
+   and dk's dA sums, g4); no A or dA; prep warps that only wait for their
+   tile; state warps that do nothing on the walk back, or on the walk
+   forward; 1xTF32. Outputs of the cut variants are wrong by design. And
+   the whole kernel at b * H = 132 (one block on every SM, one wave) and
+   160 (the training shape: 28 SMs take a second block after the first).
+   ``--bwd`` runs only this part.
 
 A source edit whose text is not found exactly once is an error. Device
 times come from torch.profiler, as in ``chip_smoke.py``. It imports
@@ -57,6 +74,43 @@ STATE_TILE = ("    if (state) {\n"
 R_DEC = "pb[RD_OFF + i * RD_STRIDE + d] = rv * p;"
 SMALL = "  mma(small, al, b0h, b1h);\n  mma(small, ah, b0l, b1l);\n"
 
+# The backward's planted faults (csrc/rwkv_scan_bwd.cu).
+BWD_FAULTS = {
+    "dw's after_t c_t without after_t": (
+        "gs[s * HD + i] = fmaf(bef[s] * aft[s], D, aft[s] * c)",
+        "gs[s * HD + i] = fmaf(bef[s] * aft[s], D, c)"),
+    "tile 3's S_in one tile stale": (
+        "ck + static_cast<size_t>(m1 - 1) * STATE_FLOATS,",
+        "ck + static_cast<size_t>(m1 == 3 ? m1 - 2 : m1 - 1) * STATE_FLOATS,"),
+    "g4 without its decays": (
+        "        g4[t] = fmaf(rho, hs[t], g4[t]);\n        rho *= wv[t];\n",
+        "        g4[t] = fmaf(rho, hs[t], g4[t]);\n"),
+}
+# Cuts of the backward for its ablation (csrc/rwkv_scan_bwd.cu).
+BWD_EPILOGUE = ("  // Per channel: dk (role 0), dr (2), dv's halves summed "
+                "(3); dw's terms\n")
+BWD_TERMS = "  if (role < 2) {\n    const int tp0"
+BWD_PREP = ("  ring.wait(x);\n  const int d = pt & (HD - 1), role = pt / HD;\n"
+            "  const float ud = u_s[d];\n")
+BWD_STATE = ("  const int q = warp & 3, h = warp >> 2, c0 = 16 * q, n0 = 4 * h;\n"
+             "\n  // G_out to shared memory")
+BWD_FORWARD = "  unsigned vh[2][4], vl[2][4];\n  token_a(pb + V_OFF"
+BWD_CUTS = {
+    "no state epilogue": [(BWD_EPILOGUE,
+                           "  if (len >= 0) return;\n" + BWD_EPILOGUE)],
+    "no state-free terms": [(BWD_TERMS,
+                             "  if (len >= 0) return;\n" + BWD_TERMS)],
+    "no A or dA": [
+        ("  if (pt < A_ITEMS) {\n", "  if (pt < 0) {\n"),
+        ("  if (pt >= PREP_THREADS - 64) {\n", "  if (pt < 0) {\n")],
+    "prep waits only": [(BWD_PREP, BWD_PREP + "  if (len >= 0) return;\n")],
+    "state idle on the walk back": [
+        (BWD_STATE, BWD_STATE.replace("\n\n", "\n  if (len >= 0) return;\n"))],
+    "state idle on the walk forward": [
+        (BWD_FORWARD, "  if (lane >= 0) return;\n" + BWD_FORWARD)],
+    "1xTF32": [("  mma(small, al, b0h, b1h);\n  mma(small, ah, b0l, b1l);\n",
+                "")],
+}
 FAULTS = {
     "one tile's intra term left out": (
         A_DOTS,
@@ -175,6 +229,17 @@ OLD_CUTS = {
 }
 
 
+def source(name: str) -> str:
+    """csrc/<name>.cu with its shared header written in place, so that a
+    variant compiles on its own and an edit may reach the header's
+    functions (the mma3 of the 1xTF32 cuts)."""
+    from repro_torch.kernels import build
+    header = "scan_tile.cuh"
+    src = (build.CSRC / f"{name}.cu").read_text()
+    text = (build.CSRC / header).read_text().replace("#pragma once\n", "")
+    return src.replace(f'#include "{header}"\n', text)
+
+
 def simt_state(src: str) -> str:
     """`src` with state_tile replaced by SIMT_STATE."""
     a, b = src.find(STATE_FN), src.find(KERNEL_FN)
@@ -192,9 +257,10 @@ def edited(src: str, edits: list, name: str) -> str:
     return src
 
 
-def variants(src: str, edits: dict, argtypes, tag: str) -> dict:
-    """The C entry point of each variant {name: [(old, new), ...]} of
-    `src`, one nvcc each, in parallel."""
+def variants(src: str, edits: dict, argtypes, tag: str,
+             entry: str = "rwkv_scan") -> dict:
+    """The C entry point `entry` of each variant {name: [(old, new), ...]}
+    of `src`, one nvcc each, in parallel."""
     from repro_torch.kernels import build
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -212,7 +278,7 @@ def variants(src: str, edits: dict, argtypes, tag: str) -> dict:
         lib.with_suffix(".log").write_text(log)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for the variant '{name}':\n{log}")
-        fn = ctypes.CDLL(str(lib)).rwkv_scan
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns
@@ -236,7 +302,7 @@ def old_launch(torch, fn, r, k, v, w, u, chunk=None):
 
 
 def faults(torch, cs, kernel) -> None:
-    src = (ROOT / "src/repro_torch/csrc/rwkv_scan.cu").read_text()
+    src = source("rwkv_scan")
     fns = {"whole kernel": kernel._function()}
     fns.update(variants(src, {n: [e] for n, e in FAULTS.items()},
                         kernel._function().argtypes, "fault"))
@@ -266,6 +332,84 @@ def faults(torch, cs, kernel) -> None:
     torch.cuda.empty_cache()
 
 
+def bwd_faults(torch, cs, kernel) -> None:
+    """The backward's planted faults through check_rwkv_scan_bwd's cases,
+    each case on the same inputs for every variant."""
+    src = source("rwkv_scan_bwd")
+    base = kernel._bwd_function()
+    fns = {"whole kernel": base}
+    fns.update(variants(src, {n: [e] for n, e in BWD_FAULTS.items()},
+                        base.argtypes, "bwd_fault", "rwkv_scan_bwd"))
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
+    cases = cs.rwkv_scan_bwd_cases()
+    fails = dict.fromkeys(fns, 0)
+    for n, (shape, decay, dt) in enumerate(cases):
+        b, s, H, hd = shape
+        x = cs.scan_inputs(torch, gen, *shape, dtype=dt, decay=decay)
+        do = torch.randn(shape, generator=gen, device="cuda").to(x[0].dtype)
+        dS = torch.randn((b, H, hd, hd), generator=gen, device="cuda") \
+            if n % 2 == 0 else None
+        want = None
+        for name, fn in fns.items():
+            got = kernel.bwd_launch(fn, *x, do, dS)
+            torch.cuda.synchronize()
+            if want is None:
+                from repro_torch.kernels.rwkv_scan.ref import \
+                    rwkv_scan_bwd_ref
+                want = rwkv_scan_bwd_ref(*x, do, dS)
+            ok, errs = cs.scan_bwd_verdict(torch, x, got, want, decay, dt)
+            fails[name] += not ok
+            print(f"[bwd faults] {name}, {shape} {dt} decay {decay} dS "
+                  f"{dS is not None}: max err dr dk dv dw du "
+                  f"{['%.3g' % e for e in errs]}; check "
+                  f"{'passes' if ok else 'fails'}")
+            del got
+        del x, do, dS, want
+    for name, n in fails.items():
+        print(f"[bwd faults] {name}: fails {n} of {len(cases)} cases")
+    cs.check(fails["whole kernel"] == 0, "the whole backward fails a case")
+    for name in BWD_FAULTS:
+        cs.check(fails[name] > 0, f"the planted fault '{name}' passes every "
+                                  f"case of check_rwkv_scan_bwd")
+    torch.cuda.empty_cache()
+
+
+def bwd_ablation(torch, cs, kernel) -> None:
+    """Device ms per microbatch of each cut of the backward, two windows
+    each, in turns; then the whole kernel at one and two waves."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    src = source("rwkv_scan_bwd")
+    base = kernel._bwd_function()
+    fns = {"whole kernel": base}
+    fns.update(variants(src, BWD_CUTS, base.argtypes, "bwd_cut",
+                        "rwkv_scan_bwd"))
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 17)
+    shape = cs.train_scan_shape()
+    launches = []
+    for _ in range(ALL_ARCHS[cs.TRAIN_ARCH].n_layers):
+        x = cs.scan_inputs(torch, gen, *shape, decay="model")
+        launches.append((*x, torch.randn(shape, generator=gen,
+                                         device="cuda"), None))
+    times = time_variants(torch, cs, launches, fns, kernel.bwd_launch,
+                          cs.RS_BWD_KERNELS)
+    for name, ts in times.items():
+        print(f"[bwd ablation] {name}: ms per microbatch "
+              f"{' / '.join(f'{t:.4f}' for t in ts)}")
+    del launches
+    b, s, _, hd = shape
+    for heads in (33, 40):
+        xs = []
+        for _ in range(8):
+            x = cs.scan_inputs(torch, gen, b, s, heads, hd, decay="model")
+            xs.append((*x, torch.randn((b, s, heads, hd), generator=gen,
+                                       device="cuda"), None))
+        ms = cs.device_ms(lambda: [kernel.rwkv_scan_bwd(*x) for x in xs], 2,
+                          cs.RS_BWD_KERNELS) / 8
+        print(f"[bwd occupancy] b * H = {b * heads}: {ms!r} ms per launch")
+        del xs
+    torch.cuda.empty_cache()
+
+
 def forward_launches(torch, cs) -> list:
     from repro_torch.configs.registry_configs import ALL_ARCHS
     from repro_torch.models.rwkv6 import HEAD_DIM, n_heads
@@ -289,7 +433,7 @@ def time_variants(torch, cs, launches, fns: dict, run, names) -> dict:
 
 def ablation(torch, cs, kernel, launches) -> None:
     from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
-    src = (ROOT / "src/repro_torch/csrc/rwkv_scan.cu").read_text()
+    src = source("rwkv_scan")
     fns = {"whole kernel": kernel._function()}
     fns.update(variants(src, CUTS, kernel._function().argtypes, "cut"))
     fns.update(variants(simt_state(src), {"state products on CUDA cores": []},
@@ -342,6 +486,8 @@ def main() -> int:
     ap.add_argument("--old", type=Path,
                     help="an earlier rwkv_scan.cu with rwkv_scan_kernel's "
                          "C signature, to ablate beside this one")
+    ap.add_argument("--bwd", action="store_true",
+                    help="only the backward's planted faults")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -350,6 +496,10 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels.rwkv_scan import kernel
     print(f"[card] {cs.card_line()}")
+    bwd_faults(torch, cs, kernel)
+    bwd_ablation(torch, cs, kernel)
+    if args.bwd:
+        return 0
     faults(torch, cs, kernel)
     launches = forward_launches(torch, cs)
     ablation(torch, cs, kernel, launches)

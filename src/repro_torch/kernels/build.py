@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout
-(git-ignored), at first use. The hash covers the source and the flags, so a
-changed source is rebuilt and never loaded stale. :func:`build` starts one
+(git-ignored), at first use. The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so a changed source is rebuilt and
+never loaded stale. :func:`build` starts one
 ``nvcc`` per source, all together, and waits for all of them.
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

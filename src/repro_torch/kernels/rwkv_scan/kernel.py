@@ -40,7 +40,7 @@ SCRATCH_FLOATS = 96 * (MAX_HEAD_DIM + 4)
 SM_SMEM = 233472
 BLOCK_SMEM_MAX = 232448
 SMEM_RESERVED = 1024
-BWD_CHUNK = 4          # csrc/rwkv_scan_bwd.cu RC: tokens per checkpoint
+BWD_CHUNK = TILE       # csrc/rwkv_scan_bwd.cu: tokens per checkpoint
 
 
 @dataclass(frozen=True)
@@ -175,8 +175,9 @@ def _bwd_function():
 
 def bwd_scratch_floats(b: int, H: int, s: int) -> int:
     """Floats of the backward's checkpoint scratch: the (64, 64) fp32
-    state at the start of every BWD_CHUNK tokens of each (b, h)."""
-    return b * H * -(-s // BWD_CHUNK) * MAX_HEAD_DIM * MAX_HEAD_DIM
+    state before each tile of BWD_CHUNK tokens of each (b, h) but the
+    first, whose state is zero."""
+    return b * H * (-(-s // BWD_CHUNK) - 1) * MAX_HEAD_DIM * MAX_HEAD_DIM
 
 
 def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,6 +189,14 @@ def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in r's dtype and du (H, hd) in u's dtype. du is summed over b from the
     kernel's per-(b, h) partials by ``sum(0)``, a fixed-order reduction,
     so two calls give identical bits."""
+    return bwd_launch(_bwd_function(), r, k, v, w, u, do, dS)
+
+
+def bwd_launch(fn, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+               dS: torch.Tensor | None) -> tuple:
+    """:func:`rwkv_scan_bwd` through the C entry point `fn` (the built
+    library's, or a variant's with the same signature)."""
     b, s, H, hd = r.shape
     rr, kk, vv, dd = (_heads_major(x, 0.0) for x in (r, k, v, do))
     ww = _heads_major(w, 1.0)
@@ -206,7 +215,7 @@ def rwkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ckpt = torch.empty((bwd_scratch_floats(b, H, s),), dtype=torch.float32,
                        device=r.device)
     dr, dk, dv, dw = grads.unbind(0)
-    err = _bwd_function()(
+    err = fn(
         rr.data_ptr(), kk.data_ptr(), vv.data_ptr(), ww.data_ptr(),
         u32.data_ptr(), dd.data_ptr(),
         dS32.data_ptr() if dS32 is not None else None,

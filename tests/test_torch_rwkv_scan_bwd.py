@@ -3,8 +3,10 @@
 and against torch autograd of the port's own ``rwkv_scan_ref``, with and
 without a gradient of the final state; the wrapper's autograd.Function on
 CPU tensors against both; its launch counters; and the kernel wrapper's
-scratch size. Shapes: tests/test_kernels.py's three, its extreme-decay
-case, one of rwkv6's head dim with a ragged length, and bf16 inputs."""
+scratch size; and the backward kernel's tile algebra
+(``rwkv_scan_bwd_chunked_ref``) against ``jax.vjp`` of the oracle. Shapes:
+tests/test_kernels.py's three, its extreme-decay case, one of rwkv6's head
+dim with a ragged length, and bf16 inputs."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,8 @@ from repro.kernels.rwkv_scan.ref import rwkv_scan_ref as jax_rwkv_ref
 from repro_torch.kernels import launch_counters, reset_launch_counters
 from repro_torch.kernels.rwkv_scan import kernel as rs_kernel
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
-from repro_torch.kernels.rwkv_scan.ref import (rwkv_scan_bwd_ref,
+from repro_torch.kernels.rwkv_scan.ref import (rwkv_scan_bwd_chunked_ref,
+                                               rwkv_scan_bwd_ref,
                                                rwkv_scan_ref)
 
 # tests/test_kernels.py's rwkv tolerance (test_rwkv_scan), on gradients
@@ -27,6 +30,8 @@ TOL = 1e-3
 BF16_TOL = 2e-2
 
 SHAPES = [(2, 64, 3, 16), (1, 128, 2, 32), (2, 48, 4, 16), (2, 13, 2, 64)]
+# The tile algebra also at several tiles with a ragged last one.
+TILE_SHAPES = SHAPES + [(1, 37, 2, 64)]
 
 
 def _inputs(seed, b, s, H, hd, extreme=False):
@@ -148,9 +153,39 @@ def test_autograd_function_only_final_state_used():
     _close(got, _jax_grads(arrays, zero, dS))
 
 
-@pytest.mark.parametrize("b,s,H", [(4, 128, 40), (2, 13, 3)])
+@pytest.mark.parametrize("b,s,H", [(4, 128, 40), (2, 13, 3), (1, 16, 2)])
 def test_bwd_scratch_size(b, s, H):
-    """One (64, 64) fp32 checkpoint per BWD_CHUNK tokens of each (b, h),
-    the ragged last chunk included."""
-    n = -(-s // rs_kernel.BWD_CHUNK)
+    """One (64, 64) fp32 checkpoint per tile of TILE tokens after the
+    first, a ragged last tile included: 18.4 MB at the training shape."""
+    n = -(-s // rs_kernel.TILE) - 1
+    assert rs_kernel.BWD_CHUNK == rs_kernel.TILE
     assert rs_kernel.bwd_scratch_floats(b, H, s) == b * H * n * 64 * 64
+
+
+@pytest.mark.parametrize("with_dS", [True, False])
+@pytest.mark.parametrize("shape", TILE_SHAPES, ids=str)
+def test_bwd_chunked_ref_matches_jax_vjp(shape, with_dS):
+    """The backward kernel's per-tile algebra (tiles of 16 tokens, the
+    ragged last one padded; dw from G_out, S_in and dA without dividing by
+    w) against the oracle's autodiff."""
+    arrays, do, dS = _inputs(sum(shape) + 2, *shape)
+    dS = dS if with_dS else None
+    got = rwkv_scan_bwd_chunked_ref(
+        *[torch.from_numpy(a) for a in arrays], torch.from_numpy(do),
+        None if dS is None else torch.from_numpy(dS))
+    assert [g.dtype for g in got] == [torch.float32] * 5
+    _close(got, _jax_grads(arrays, do, dS))
+
+
+@pytest.mark.parametrize("with_dS", [True, False])
+@pytest.mark.parametrize("shape", [(1, 32, 2, 16), (2, 45, 2, 64)], ids=str)
+def test_bwd_chunked_ref_extreme_decay(shape, with_dS):
+    """Decays of 1e-35 at 40 % of the entries: the tile algebra forms
+    every decay as a product, so every gradient is finite and matches the
+    oracle's."""
+    arrays, do, dS = _inputs(sum(shape) + 3, *shape, extreme=True)
+    dS = dS if with_dS else None
+    got = rwkv_scan_bwd_chunked_ref(
+        *[torch.from_numpy(a) for a in arrays], torch.from_numpy(do),
+        None if dS is None else torch.from_numpy(dS))
+    _close(got, _jax_grads(arrays, do, dS))
