@@ -72,13 +72,21 @@ GPU, from the root of a checkout:
      64 tokens through ``decode_step`` (cross KV filled, fp32 cache)
      against ``forward``.
    * rwkv6-3b trained through ``repro_torch.launch.train`` at full width
-     and depth in bf16 with the reference driver's defaults (seq 128,
-     global batch 8, 2 microbatches, lr 1e-3) for 10 steps: finite
-     losses, 128 rwkv_scan launches a step (32 layers x 2 microbatches,
-     each layer's forward twice with remat) and 64 rwkv_scan_bwd; ms per
-     step, tokens/s, peak memory and the step's bound; then one step's
-     fp32 loss and grads at full width cut to 4 layers, kernel path
-     against plain path, per leaf norm-wise.
+     and depth in bf16 on its default 1x1 mesh (parameters and AdamW
+     moments as DTensors under the family's specs) with the reference
+     driver's defaults (seq 128, global batch 8, 2 microbatches, lr 1e-3)
+     for 10 steps: finite losses, 128 rwkv_scan launches a step (32
+     layers x 2 microbatches, each layer's forward twice with remat) and
+     64 rwkv_scan_bwd; ms per step, tokens/s, peak memory and the step's
+     bound. Then the checkpoint check at full width cut to 4 layers
+     (steps 0-4 with an async save of step 4 into a temporary directory,
+     then a second run that restores it and runs steps 5-9, its launches
+     counted; both runs' losses must be those of an uninterrupted 10-step
+     run bit for bit): the bytes of the save on disk, the seconds it
+     blocked the loop and took to write, the host copy's bytes and the
+     restore's seconds, each line with the card's name and power limit.
+     Then one step's fp32 loss and grads at full width cut to 4 layers,
+     kernel path against plain path, per leaf norm-wise.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -129,13 +137,13 @@ whisper`` and ``--only mllama`` likewise run only that model's phases.
 launches of one training microbatch on synthesised inputs. ``--only
 train`` builds and checks rwkv_scan, forward and backward, then runs only
 the training phases, profiled split and backward timings included (no
-``ok`` line). ``--baseline``
-runs either on a tree whose kernel predates its redesign (copy this
-script into that tree's root): it leaves out the checks and plan that the
-redesign added and times the old kernel's device kernels (for
-rwkv_scan_bwd without the plain version, the same code on both trees).
-For rwkv_scan it takes either device kernel name of the forward, and
-checks and times the backward too where that tree has one.
+``ok`` line), its checkpoint check at full depth (30.7 GB a save).
+``--baseline`` runs either on a tree whose kernel predates its redesign
+(copy this script into that tree's root): it leaves out the checks and
+plan that the redesign added and times the old kernel's device kernels
+(for rwkv_scan_bwd without the plain version, the same code on both
+trees). For rwkv_scan it takes either device kernel name of the forward,
+and checks and times the backward too where that tree has one.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA card, or a directory without the
@@ -147,8 +155,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -222,6 +234,19 @@ TRAIN_ARCH = "rwkv6-3b"
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 128, 8, 2
 TRAIN_LR = 1e-3
 TRAIN_CHECK_LAYERS = 4
+# The checkpoint check: a run of the first TRAIN_CKPT_EVERY steps saves
+# its last (``--ckpt-every TRAIN_CKPT_EVERY``, async, the reference's
+# format, a temporary directory); a second run restores it and runs the
+# remaining steps of TRAIN_STEPS, saving none (``--ckpt-every``
+# RESUMED_CKPT_EVERY). Both runs' losses must be the uninterrupted run's
+# bit for bit. One save only: a full-depth save is 30.7 GB (28.6 GiB),
+# and the H100 host it was measured on ends a command once it has written
+# 45 GiB to its disk, deleted files counted. `--only train` checks at
+# full depth; the full script at full width cut to TRAIN_CHECK_LAYERS
+# layers, since a full-depth save and restore take about 130 s at the
+# 0.58 GB/s np.savez wrote there, more than its time limit leaves.
+TRAIN_CKPT_EVERY = 5
+RESUMED_CKPT_EVERY = 100
 # One training step's fp32 loss and grads, kernel path against plain path,
 # per leaf: ||kernel - plain|| <= TRAIN_GRAD_TOL ||plain||. Both paths sum
 # in fp32 in other orders, and the forward kernel's state products carry
@@ -1430,17 +1455,33 @@ def train_bound(cfg, params) -> dict:
             "optimizer_ms": opt_ms, "bound_ms": compute_ms + opt_ms}
 
 
-def train_phase(torch, timed_launches: int | None = None) -> dict:
+def train_counts(n_layers: int) -> dict:
+    """Each kernel's launches in one training step of rwkv6-3b at
+    `n_layers` layers: each layer's forward and its remat recompute, per
+    microbatch, through rwkv_scan, and its backward through
+    rwkv_scan_bwd."""
+    return {"flash_decode": 0, "rowstream_matmul": 0,
+            "rwkv_scan": 2 * n_layers * TRAIN_MICRO,
+            "rwkv_scan_bwd": n_layers * TRAIN_MICRO}
+
+
+def train_phase(torch, timed_launches: int | None = None,
+                ckpt_layers: int | None = None) -> dict:
     """rwkv6-3b trained at full width and depth in bf16 through
-    ``repro_torch.launch.train`` with the reference driver's defaults for
-    TRAIN_STEPS steps, random weights from SEED, the launch counters set
-    to 0 just before and read just after: per step 2 x 32 x 2 rwkv_scan
-    (each layer's forward and its remat recompute, per microbatch) and
-    32 x 2 rwkv_scan_bwd launches. The losses must be finite. Timed on
-    the host clock (each step ends in reading its loss back). The inputs
-    of the first `timed_launches` rwkv_scan_bwd launches (by default all
-    32 of step 0's first microbatch, left out of the median) are kept,
-    and their CUDA-event wall time taken, for phase 4 (``bwd_work``)."""
+    ``repro_torch.launch.train`` on its default 1x1 mesh with the
+    reference driver's defaults for TRAIN_STEPS steps, random weights from
+    SEED, the launch counters set to 0 just before and read just after:
+    per step 2 x 32 x 2 rwkv_scan (each layer's forward and its remat
+    recompute, per microbatch) and 32 x 2 rwkv_scan_bwd launches. The
+    losses must be finite. Timed on the host clock (each step ends in
+    reading its loss back). The inputs of the first `timed_launches`
+    rwkv_scan_bwd launches (by default all 32 of step 0's first
+    microbatch, left out of the median) are kept, and their CUDA-event
+    wall time taken, for phase 4 (``bwd_work``).
+
+    Then the checkpoint check (``resume_check``), at full depth against
+    this run's losses, or with `ckpt_layers` at full width cut to that
+    many layers."""
     from repro_torch.configs.registry_configs import ALL_ARCHS
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.kernels.rwkv_scan import kernel
@@ -1448,7 +1489,8 @@ def train_phase(torch, timed_launches: int | None = None) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    L = ALL_ARCHS[TRAIN_ARCH].n_layers
+    full = ALL_ARCHS[TRAIN_ARCH]
+    L = full.n_layers
     timed = timed_launches or L
     launches = []
     bwd = kernel.rwkv_scan_bwd
@@ -1466,20 +1508,20 @@ def train_phase(torch, timed_launches: int | None = None) -> dict:
         run = port_train.train(TRAIN_ARCH, steps=TRAIN_STEPS,
                                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                                microbatches=TRAIN_MICRO, lr=TRAIN_LR,
-                               seed=SEED, device="cuda")
+                               seed=SEED, device="cuda", mesh="1x1")
         torch.cuda.synchronize()
     finally:
         kernel.rwkv_scan_bwd = bwd
     total_s = time.perf_counter() - t0
     counts = {name: c.count for name, c in launch_counters().items()}
-    per_step_counts = {"flash_decode": 0, "rowstream_matmul": 0,
-                       "rwkv_scan": 2 * L * TRAIN_MICRO,
-                       "rwkv_scan_bwd": L * TRAIN_MICRO}
+    per_step_counts = train_counts(L)
     check(counts == {n: k * TRAIN_STEPS for n, k in per_step_counts.items()},
           f"rwkv6-3b training: launches {counts} in {TRAIN_STEPS} steps, "
           f"expected {per_step_counts} per step")
     check(all(math.isfinite(x) for x in run.losses),
           f"rwkv6-3b training losses {run.losses}")
+    check(tuple(run.mesh.shape) == (1, 1),
+          f"rwkv6-3b training ran on a {tuple(run.mesh.shape)} mesh")
     step_ms = [x * 1e3 for x in run.step_s]
     warm = sorted(step_ms[1:])
     median = warm[len(warm) // 2]
@@ -1492,7 +1534,17 @@ def train_phase(torch, timed_launches: int | None = None) -> dict:
     check(len(launches) == timed,
           f"recorded {len(launches)} rwkv_scan_bwd launches, expected "
           f"{timed}")
+    losses = run.losses
     del run
+    torch.cuda.empty_cache()
+    if ckpt_layers is None:
+        out["ckpt"] = resume_check(torch, full, losses)
+    else:
+        print(f"[depth] {TRAIN_ARCH} checkpoint check: {L} layers cut to "
+              f"{ckpt_layers} at full width (the full-depth check runs "
+              f"with --only train)")
+        out["ckpt"] = resume_check(
+            torch, dataclasses.replace(full, n_layers=ckpt_layers))
     torch.cuda.empty_cache()
     work = out["bwd_work"] = scan_bwd_work(torch, launches)
     work["per"] = (f"{'' if timed == L else f'{timed} of '}the {L} "
@@ -1505,6 +1557,93 @@ def train_phase(torch, timed_launches: int | None = None) -> dict:
           f"time {t1 - t0:.1f} s, the fp32 step check "
           f"{time.perf_counter() - t1:.1f} s")
     return out
+
+
+def resume_check(torch, cfg, losses: list | None = None) -> dict:
+    """The checkpoint check of rwkv6-3b at `cfg`'s depth, full width, bf16,
+    the driver's defaults on its 1x1 mesh, from SEED, against the losses
+    of an uninterrupted TRAIN_STEPS-step run (`losses`, or such a run
+    made here): a run of the first TRAIN_CKPT_EVERY steps saves its last
+    step (async) into a temporary directory; a second run restores it and
+    runs the rest, saving none. Both runs' losses must be the
+    uninterrupted run's bit for bit. The counters are set to 0 just before
+    the second run and read just after. Reports the bytes of the save on
+    disk, what the save blocked and took (``AsyncCheckpointer.saves``),
+    the restore's seconds and the peak resident host memory."""
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.launch import train as port_train
+    args = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                microbatches=TRAIN_MICRO, lr=TRAIN_LR, seed=SEED,
+                device="cuda", mesh="1x1")
+    if losses is None:
+        losses = port_train.train(cfg, steps=TRAIN_STEPS, **args).losses
+        torch.cuda.empty_cache()
+    kept = TRAIN_CKPT_EVERY - 1
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        first = port_train.train(cfg, steps=TRAIN_CKPT_EVERY,
+                                 ckpt_dir=ckpt_dir,
+                                 ckpt_every=TRAIN_CKPT_EVERY,
+                                 async_ckpt=True, **args)
+        first_losses, saves = first.losses, first.saves
+        del first
+        torch.cuda.empty_cache()
+        check(first_losses == losses[:kept + 1],
+              f"checkpointed run's losses {first_losses} against the "
+              f"uninterrupted run's {losses[:kept + 1]}")
+        check([s["step"] for s in saves] == [kept]
+              and ckpt.latest_step(ckpt_dir) == kept,
+              f"saves {saves} in {ckpt_dir}")
+        step_dir = os.path.join(ckpt_dir, f"step_{kept:06d}")
+        disk_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        n_steps = TRAIN_STEPS - kept - 1
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        resumed = port_train.train(cfg, steps=n_steps, ckpt_dir=ckpt_dir,
+                                   ckpt_every=RESUMED_CKPT_EVERY,
+                                   async_ckpt=True, **args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {name: c.count for name, c in launch_counters().items()}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    per_step = train_counts(cfg.n_layers)
+    check(resumed.start_step == kept + 1 and not resumed.saves,
+          f"resumed at step {resumed.start_step} with saves "
+          f"{resumed.saves}, expected step {kept + 1} and none")
+    check(counts == {n: k * n_steps for n, k in per_step.items()},
+          f"resumed training: launches {counts} in {n_steps} steps, "
+          f"expected {per_step} per step")
+    check(resumed.losses == losses[kept + 1:],
+          f"resumed losses {resumed.losses} against the uninterrupted "
+          f"run's {losses[kept + 1:]}")
+    out = {"layers": cfg.n_layers, "disk_bytes": disk_bytes,
+           "saves": saves, "restore_s": resumed.restore_s,
+           "resumed_losses": resumed.losses, "counts": counts,
+           "per_step": per_step, "run_s": run_s,
+           "peak_host_rss_bytes": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024}
+    del resumed
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_ckpt(c: dict, card: str) -> None:
+    s = c["saves"][0]
+    kept = TRAIN_CKPT_EVERY - 1
+    print(f"[ckpt] {TRAIN_ARCH} at {c['layers']} layers, full width: the "
+          f"async save of step {s['step']} holds {c['disk_bytes']} bytes on "
+          f"disk; it blocked the loop {s['block_s']!r} s (the host copy of "
+          f"{s['host_bytes']} bytes {s['copy_s']!r} s) and wrote in "
+          f"{s['write_s']!r} s; the restore took {c['restore_s']!r} s; "
+          f"peak host RSS {c['peak_host_rss_bytes']} bytes; {card}")
+    print(f"[ckpt] {TRAIN_ARCH} at {c['layers']} layers resumed from step "
+          f"{kept}: steps {kept + 1}-{TRAIN_STEPS - 1} losses "
+          f"{c['resumed_losses']!r} equal the uninterrupted run's bit for "
+          f"bit; launches {c['counts']} ({c['per_step']} per step); "
+          f"{c['run_s']!r} s with the restore; {card}")
 
 
 def train_step_grads(torch, ad, params, batch) -> tuple:
@@ -1604,26 +1743,27 @@ def train_profiled(torch, t: dict) -> dict:
     of one training microbatch, on the kernel and the plain backward."""
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.launch import train as port_train
+    from repro_torch.launch.mesh import process_group_scope
     from repro_torch.train import train_step as ts_mod
-    cfg, ad, step = port_train.build(TRAIN_ARCH, False, TRAIN_MICRO,
-                                     TRAIN_LR)
-    state = [ts_mod.train_state_init(
-        ad.init(torch.Generator(device="cuda").manual_seed(SEED)))]
-    batch = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
-        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).batch_at(0).items()}
+    with process_group_scope():
+        cfg, ad, mesh, step, tp = port_train.build(
+            TRAIN_ARCH, False, TRAIN_MICRO, TRAIN_LR, (1, 1), "cuda")
+        state = [port_train.init_state(ad, mesh, tp, SEED, "cuda")]
+        batch = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
+            cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).batch_at(0).items()}
 
-    def one():
-        state[0], metrics = step(state[0], batch)
-        return float(metrics["loss"])
+        def one():
+            state[0], metrics = step(state[0], batch)
+            return float(metrics["loss"])
 
-    t0 = time.perf_counter()
-    with labelled((ts_mod, "adamw_update")):
-        prof = profile_calls(one, 1, cpu=True)
-    t1 = time.perf_counter()
-    split = op_split(prof, 1, {"scan forward": RS_KERNELS,
-                               "scan backward": RS_BWD_KERNELS},
-                     {"adamw_update": "optimizer"}, products=True,
-                     product_ops=TRAIN_PRODUCT_OPS)
+        t0 = time.perf_counter()
+        with labelled((ts_mod, "adamw_update")):
+            prof = profile_calls(one, 1, cpu=True)
+        t1 = time.perf_counter()
+        split = op_split(prof, 1, {"scan forward": RS_KERNELS,
+                                   "scan backward": RS_BWD_KERNELS},
+                         {"adamw_update": "optimizer"}, products=True,
+                         product_ops=TRAIN_PRODUCT_OPS)
     check(all(t > 0 for t in split.values()),
           f"training step: a part took no device time: {split}")
     print_split(f"{TRAIN_ARCH} training step", split, t["median_step_ms"])
@@ -2996,6 +3136,7 @@ def main(argv=None) -> int:
         check_rwkv_scan_bwd_launches(torch, dev)
         t = train_phase(torch)
         print_train(t)
+        print_ckpt(t["ckpt"], card)
         tp = train_profiled(torch, t)
         print(json.dumps({"train": dict(t, profiled=tp)}))
         print(f"[run] {time.perf_counter() - t_start:.0f} s")
@@ -3078,8 +3219,9 @@ def main(argv=None) -> int:
     z = zamba2_phase(torch)
     cross = {name: cross_phase(torch, name) for name in (WHISPER, MLLAMA)}
     t0 = time.perf_counter()
-    train = train_phase(torch, FULL_RUN_BWD_LAUNCHES)
+    train = train_phase(torch, FULL_RUN_BWD_LAUNCHES, TRAIN_CHECK_LAYERS)
     print_train(train)
+    print_ckpt(train["ckpt"], card)
     train_s = time.perf_counter() - t0
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
@@ -3190,7 +3332,8 @@ def main(argv=None) -> int:
              "whisper-small forward": cross[WHISPER]["forward"]["counts"],
              "llama-3.2-vision serve": cross[MLLAMA]["serve"]["counts"],
              "llama-3.2-vision forward": cross[MLLAMA]["forward"]["counts"],
-             "rwkv6-3b train": train["counts"]}
+             "rwkv6-3b train": train["counts"],
+             "rwkv6-3b resumed train": train["ckpt"]["counts"]}
     # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
     # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
@@ -3323,5 +3466,19 @@ def _tensors(tree):
             yield v
 
 
+def close_process_group() -> None:
+    """Destroy the training driver's process group (its 1x1 mesh's NCCL
+    communicator), if a phase made one."""
+    if "torch" not in sys.modules:
+        return
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        close_process_group()
+    sys.exit(code)

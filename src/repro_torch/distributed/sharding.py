@@ -1,12 +1,373 @@
-"""Integer padding helpers, copied from ``repro.distributed.sharding``
-(that module imports JAX; these functions do not). The port has no
-tensor parallelism yet, so the query-head padding to a multiple of TP
-(``padded_heads``) waits for the slice that adds it."""
+"""Sharding vocabulary and helpers on a ``torch.distributed`` DeviceMesh:
+the counterpart of ``repro.distributed.sharding``.
+
+Mesh axes (see ``launch/mesh.py``):
+  * ``pod``   -- outer data-parallel axis across pods (multi-pod mesh only)
+  * ``data``  -- data parallel / FSDP axis within a pod
+  * ``model`` -- tensor-parallel axis
+
+As in the reference, a tensor's sharding is a spec tuple: one entry per
+tensor dim, each None, a mesh axis name or a tuple of names. On a
+DeviceMesh a spec becomes DTensor placements, one per mesh dim
+(:func:`spec`): ``Shard(i)`` on each mesh dim that entry i names,
+``Replicate()`` on the others. Axes missing from the mesh are dropped
+(:func:`filter_spec`); a mesh dim of size 1 is ``Replicate()``, which is
+the same layout. Where one entry names several axes, the tensor dim is
+split by them in mesh order, as the reference's major-to-minor order.
+
+The active mesh is the one installed by :func:`use_mesh` (the reference's
+``set_mesh``); :func:`shard_hint` and :func:`constrain_like` are the
+identity without one. The port computes on whole tensors: its train step
+gathers each parameter before the forward (``train/train_step.py``), so a
+hint on a plain tensor is the identity too, and a DTensor is
+redistributed to the hint.
+"""
 from __future__ import annotations
 
+import contextlib
+
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard)
+
+BATCH_AXES = ("pod", "data")    # batch dim shards over both DP axes
+TP_AXIS = "model"
+
+# --- activation (sequence-parallel) sharding policy -------------------------
+# When set to a mesh axis name (usually "model"), the residual stream h is
+# hinted to be sharded along its sequence dim between blocks.
+_ACT_SEQ_AXIS: list = [None]
+
+
+class activation_sharding:
+    """Context manager selecting the sequence-parallel axis."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    def __enter__(self):
+        _ACT_SEQ_AXIS.append(self.axis)
+        return self
+
+    def __exit__(self, *exc):
+        _ACT_SEQ_AXIS.pop()
+        return False
+
+
+def act_seq_axis():
+    return _ACT_SEQ_AXIS[-1]
+
+
+def hint_residual(h):
+    """Sharding hint for the residual stream (b, s, d) between blocks."""
+    if h.ndim != 3 or h.shape[1] <= 1:
+        return shard_hint(h, BATCH_AXES, None, None)
+    return shard_hint(h, BATCH_AXES, act_seq_axis(), None)
+
+
+# --- the active mesh --------------------------------------------------------
+
+_ACTIVE_MESH: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Install `mesh` as the active mesh inside the ``with`` block."""
+    _ACTIVE_MESH.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH.pop()
+
+
+def active_mesh():
+    """The mesh installed by the innermost :func:`use_mesh`, or None."""
+    return _ACTIVE_MESH[-1] if _ACTIVE_MESH else None
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+# --- specs ------------------------------------------------------------------
+
+def filter_spec(entries: tuple, axis_names: tuple) -> tuple:
+    """Drop mesh axes that are not present on the mesh."""
+    out = []
+    for e in entries:
+        if e is None:
+            out.append(None)
+        elif isinstance(e, (tuple, list)):
+            kept = tuple(a for a in e if a in axis_names)
+            out.append(kept if kept else None)
+        else:
+            out.append(e if e in axis_names else None)
+    return tuple(out)
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def placements(mesh, entries: tuple) -> tuple:
+    """DTensor placements, one per dim of `mesh`, of a tensor whose dim i
+    is split over the mesh axes that entries[i] names. Axes missing from
+    the mesh are ignored; a mesh dim of size 1 is Replicate. An axis named
+    by two entries raises."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    seen: set = set()
+    for dim, e in enumerate(entries):
+        for a in _axes(e):
+            if a not in names:
+                continue
+            if a in seen:
+                raise ValueError(f"mesh axis {a!r} used twice in {entries}")
+            seen.add(a)
+            m = names.index(a)
+            if mesh.shape[m] > 1:
+                out[m] = Shard(dim)
+    return tuple(out)
+
+
+def spec(mesh, *entries) -> tuple:
+    """The placements on `mesh` of the spec `entries`, axes the mesh lacks
+    dropped (the reference's ``spec``, which returns a PartitionSpec for
+    the active mesh). A pure function of its arguments."""
+    return placements(mesh, filter_spec(entries, tuple(mesh.mesh_dim_names)))
+
+
+def _entry_ok(e, dim: int, sizes: dict):
+    """The axes of entry `e` that divide a dim of size `dim`: axes missing
+    from the mesh dropped, then leading axes dropped until the product of
+    the sizes divides `dim`."""
+    axes = [a for a in _axes(e) if a in sizes]
+    while axes:
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if dim % prod == 0:
+            break
+        axes.pop(0)
+    if not axes:
+        return None
+    return tuple(axes) if len(axes) > 1 else axes[0]
+
+
+def constrain_entries(spec_: tuple, shape: tuple, sizes: dict) -> tuple:
+    """The reference's ``constrain_like`` rule for one leaf: the spec
+    padded with None to the leaf's rank, each entry cut to the axes that
+    divide its dim (:func:`_entry_ok`), and no mesh axis used by two
+    entries (a later entry loses it)."""
+    spec_ = tuple(spec_) + (None,) * (len(shape) - len(spec_))
+    used: set = set()
+    entries = []
+    for e, d in zip(spec_, shape):
+        c = None if e is None else _entry_ok(e, d, sizes)
+        if c is not None:
+            cs = c if isinstance(c, tuple) else (c,)
+            cs = tuple(a for a in cs if a not in used)
+            used.update(cs)
+            c = cs if len(cs) > 1 else (cs[0] if cs else None)
+        entries.append(c)
+    return tuple(entries)
+
+
+def is_spec(x) -> bool:
+    """A spec tuple (a leaf of a specs tree), as the reference tests."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        isinstance(e, (str, tuple, list, type(None))) for e in x)
+
+
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of nested dicts and NamedTuples
+    whose specs tree has the same structure, spec tuples at the leaves; a
+    subtree whose spec is None is left as it is."""
+    if specs is None:
+        return tree
+    if is_spec(specs):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(map_specs(fn, t, s)
+                            for t, s in zip(tree, specs)))
+    raise TypeError(f"no spec for a {type(tree).__name__} leaf")
+
+
+# --- placing tensors on a mesh ----------------------------------------------
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (its storage), a plain tensor as
+    is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def local_tree(tree):
+    """A tree of nested dicts and NamedTuples with each DTensor leaf
+    replaced by its local shard."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(local_tree(t) for t in tree))
+    return local(tree)
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a DTensor gathered over its mesh (its own storage
+    when every placement is Replicate), a plain tensor as is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def local_shard(full: torch.Tensor, mesh, places: tuple) -> torch.Tensor:
+    """This rank's shard under `places` of a tensor every rank holds
+    whole: no communication. Mesh dims split in order, each into equal
+    parts; a dim that does not divide raises."""
+    coord = mesh.get_coordinate()
+    out = full
+    for m, p in enumerate(places):
+        if isinstance(p, Shard):
+            n = mesh.shape[m]
+            if out.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of a {tuple(full.shape)} "
+                                 f"tensor does not split over {n} ranks of "
+                                 f"mesh axis {mesh.mesh_dim_names[m]!r}")
+            out = out.chunk(n, p.dim)[coord[m]]
+    return out if out is full else out.contiguous().clone()
+
+
+def like(ref: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`x`, a local shard, as a DTensor placed like `ref`; `x` as is when
+    `ref` is a plain tensor."""
+    if not isinstance(ref, DTensor):
+        return x
+    return DTensor.from_local(x, ref.device_mesh, ref.placements,
+                              run_check=False)
+
+
+def place(x: torch.Tensor, mesh, places: tuple) -> torch.Tensor:
+    """`x` as a DTensor on `mesh` under `places`: a plain tensor (the same
+    on every rank) is cut locally, a DTensor on `mesh` redistributed
+    (itself where its placements are these)."""
+    if isinstance(x, DTensor):
+        if x.device_mesh == mesh:
+            if tuple(x.placements) == tuple(places):
+                return x
+            return x.redistribute(mesh, places)
+        x = x.full_tensor()
+    return DTensor.from_local(local_shard(x, mesh, places), mesh, places,
+                              run_check=False)
+
+
+def shard_hint(x: torch.Tensor, *entries) -> torch.Tensor:
+    """Identity with no active mesh or on a plain tensor; a DTensor is
+    redistributed to the hint, axes the mesh lacks dropped."""
+    mesh = active_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return place(x, mesh, spec(mesh, *entries))
+
+
+def constrain_like(tree, specs, mesh=None):
+    """Every leaf placed on the active mesh (or `mesh`) under its spec
+    tuple, filtered to the mesh and to divisibility by the reference's
+    rule (:func:`constrain_entries`). No-op outside a mesh. The train step
+    keeps parameters, moments and the gradient accumulator so (ZeRO over
+    ``data`` with ``fsdp="data"``, tensor-parallel storage over
+    ``model``)."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return tree
+    sizes = mesh_axis_sizes(mesh)
+    return map_specs(lambda x, s: place(x, mesh, placements(
+        mesh, constrain_entries(s, tuple(x.shape), sizes))), tree, specs)
+
+
+# --- the data axes ----------------------------------------------------------
+
+def _dims(mesh, axes) -> list:
+    names = tuple(mesh.mesh_dim_names)
+    return [names.index(a) for a in axes if a in names]
+
+
+def data_rows(mesh) -> tuple[int, int]:
+    """(index, count): this rank's place among the ranks that split the
+    batch (the mesh's ``pod`` and ``data`` axes, pod major); (0, 1) with
+    no mesh."""
+    if mesh is None:
+        return 0, 1
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for m in _dims(mesh, BATCH_AXES):
+        index = index * mesh.shape[m] + coord[m]
+        count *= mesh.shape[m]
+    return index, count
+
+
+def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of `x` over the ranks of the mesh axes `axes` (all-reduce),
+    `x` itself where they hold one rank."""
+    places = [Replicate()] * mesh.ndim
+    for m in _dims(mesh, axes):
+        if mesh.shape[m] > 1:
+            places[m] = Partial()
+    if all(isinstance(p, Replicate) for p in places):
+        return x
+    return DTensor.from_local(x, mesh, places, run_check=False).full_tensor()
+
+
+def reduce_into(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The local shard, placed like the DTensor `ref`, of the sum of `g`
+    over the batch axes: each rank's `g` is the whole gradient of its own
+    rows. A reduce-scatter where a dim of `ref` is split over a batch
+    axis, an all-reduce where it is not; a plain slice on the other axes
+    (their ranks hold the same rows); no communication where the batch
+    axes hold one rank."""
+    mesh = ref.device_mesh
+    src = [Replicate()] * mesh.ndim
+    for m in _dims(mesh, BATCH_AXES):
+        if mesh.shape[m] > 1:
+            src[m] = Partial()
+    if all(isinstance(p, Replicate) for p in src):
+        return local_shard(g, mesh, ref.placements)
+    return DTensor.from_local(g.float(), mesh, src, run_check=False) \
+        .redistribute(mesh, ref.placements).to_local()
+
+
+def counted_once(x: torch.Tensor) -> bool:
+    """Whether this rank's shard of `x` is the one that counts in a sum
+    over the mesh: the rank at coordinate 0 of every mesh dim that holds
+    copies of it (Replicate of size > 1). True for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return True
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    return all(coord[m] == 0 for m, p in enumerate(x.placements)
+               if isinstance(p, Replicate) and mesh.shape[m] > 1)
+
+
+# ---------------------------------------------------------------------------
+# Padding policies
+# ---------------------------------------------------------------------------
 
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def padded_heads(n_heads: int, tp: int) -> int:
+    """Query heads are padded up to a multiple of TP (vLLM/MaxText
+    convention). As in the reference's init, the pad heads' projections
+    are drawn like the others (``layers.attn_params``), so they compute."""
+    return pad_to_multiple(n_heads, tp)
+
+
+def padded_kv_heads(n_kv_heads: int, tp: int) -> int:
+    """KV heads are *replicated* (not padded) when fewer than TP; the
+    parameter tensors keep their true size. For sharding purposes the kv
+    projection output dim shards over TP only when divisible."""
+    return n_kv_heads
 
 
 def padded_vocab(vocab: int, multiple: int = 128) -> int:

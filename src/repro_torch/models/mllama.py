@@ -31,11 +31,12 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.sharding import padded_vocab
+from ..distributed.sharding import padded_heads, padded_vocab
 from .layers import (attn_params, cross_attention, cross_decode_attention,
                      dense_init, ffn_params, matmul, rmsnorm, swiglu)
 from .transformer import (_block_forward, _dtype, _index, _layers, _stack,
-                          block_decode, remat_call)
+                          _stacked, attn_specs, block_decode, ffn_specs,
+                          remat_call)
 
 
 def _pattern(cfg) -> tuple[int, int]:
@@ -48,34 +49,36 @@ def _pattern(cfg) -> tuple[int, int]:
 # Init
 # ---------------------------------------------------------------------------
 
-def _self_block_init(gen: torch.Generator, cfg, dt) -> dict:
+def _self_block_init(gen: torch.Generator, cfg, nH: int, dt) -> dict:
     dev = gen.device
     return {
-        "attn": attn_params(gen, cfg, cfg.n_heads, cfg.n_kv_heads, dt),
+        "attn": attn_params(gen, cfg, nH, cfg.n_kv_heads, dt),
         "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "ffn": ffn_params(gen, cfg.d_model, cfg.d_ff, dt),
         "ffn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
     }
 
 
-def _cross_block_init(gen: torch.Generator, cfg, dt) -> dict:
-    p = _self_block_init(gen, cfg, dt)
+def _cross_block_init(gen: torch.Generator, cfg, nH: int, dt) -> dict:
+    p = _self_block_init(gen, cfg, nH, dt)
     p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
     p["gate_ffn"] = torch.zeros((), dtype=torch.float32, device=gen.device)
     return p
 
 
-def init(cfg, gen: torch.Generator) -> dict:
+def init(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """Random parameters on ``gen``'s device with the reference's structure
     and scales: normal/sqrt(fan_in) projections, the embedding at 0.02,
-    unit norms, zero fp32 gates."""
+    unit norms, zero fp32 gates; the query heads padded to a multiple of
+    `tp`."""
     dt = _dtype(cfg)
+    nH = padded_heads(cfg.n_heads, tp)
     k, n_units = _pattern(cfg)
     V = padded_vocab(cfg.vocab)
     embed = dense_init(gen, (V, cfg.d_model), dt, scale=0.02)
-    self_blocks = _stack([_self_block_init(gen, cfg, dt)
+    self_blocks = _stack([_self_block_init(gen, cfg, nH, dt)
                           for _ in range(n_units * (k - 1))])
-    cross_blocks = _stack([_cross_block_init(gen, cfg, dt)
+    cross_blocks = _stack([_cross_block_init(gen, cfg, nH, dt)
                            for _ in range(n_units)])
     return {
         "embed": embed,
@@ -83,6 +86,22 @@ def init(cfg, gen: torch.Generator) -> dict:
         "cross_blocks": cross_blocks,
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
         "lm_head": dense_init(gen, (cfg.d_model, V), dt),
+    }
+
+
+def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
+    """Spec tuples mirroring init()'s structure (the reference's)."""
+    attn = attn_specs(cfg, fsdp, tp)
+    base = {"attn": {k: attn[k] for k in ("wq", "wk", "wv", "wo")},
+            "attn_norm": (None,), "ffn": ffn_specs(fsdp),
+            "ffn_norm": (None,)}
+    cross = base | {"gate_attn": (), "gate_ffn": ()}
+    return {
+        "embed": ("model", fsdp),
+        "self_blocks": _stacked(base),
+        "cross_blocks": _stacked(cross),
+        "final_norm": (None,),
+        "lm_head": (fsdp, "model"),
     }
 
 
@@ -131,10 +150,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", tp: int = 1) -> dict:
     """Zeroed stacked caches: self KV (n_self, b, h_kv, max_seq, hd) and
     cross KV (n_units, b, h_kv, n_vision_tokens, hd). bf16 by default, also
-    for an fp32 model, as in the reference."""
+    for an fp32 model, as in the reference. `tp` changes nothing: the KV
+    heads are not padded."""
     k, n_units = _pattern(cfg)
     hd = cfg.resolved_head_dim
     self_shape = (n_units * (k - 1), batch, cfg.n_kv_heads, max_seq, hd)
@@ -143,6 +163,12 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(self_shape, dtype=dtype, device=device),
             "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
             "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+
+
+def cache_specs(cfg) -> dict:
+    """The caches' spec tuples (the reference's)."""
+    s = (None, ("pod", "data"), None, "model", None)
+    return {"k": s, "v": s, "xk": s, "xv": s}
 
 
 def precompute_cross_kv(params: dict, cfg,

@@ -36,6 +36,27 @@ def moe_params(gen: torch.Generator, cfg, dtype) -> dict:
     }
 
 
+def moe_param_specs(cfg, fsdp, tp: int) -> dict:
+    """Spec tuples of :func:`moe_params` (the reference's): experts over
+    ``model`` when they divide over TP (expert parallelism), else each
+    expert's FFN width."""
+    m = cfg.moe
+    ep = (m.n_experts % tp == 0)
+    if ep:
+        return {
+            "router": (None, None),
+            "w_gate": ("model", fsdp, None),
+            "w_up": ("model", fsdp, None),
+            "w_down": ("model", None, fsdp),
+        }
+    return {
+        "router": (None, None),
+        "w_gate": (None, fsdp, "model"),
+        "w_up": (None, fsdp, "model"),
+        "w_down": (None, "model", fsdp),
+    }
+
+
 def pick_group_size(cfg, cap: int = 512) -> int:
     """Routing-group length bounding dispatch overhead: the largest power
     of two (from 64, at most `cap`) under 0.3 * expert_d_ff /

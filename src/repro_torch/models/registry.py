@@ -2,7 +2,8 @@
 counterpart of ``repro.models.registry``.
 
     adapter = get_adapter("rwkv6-3b")
-    params  = adapter.init(torch.Generator("cuda").manual_seed(0))
+    params  = adapter.init(torch.Generator("cuda").manual_seed(0), tp=1)
+    specs   = adapter.param_specs(fsdp="data", tp=1)     # spec tuples
     logits  = adapter.forward(params, batch)          # train / prefill
     loss    = adapter.loss(params, batch, remat=True) # differentiable
     state   = adapter.init_decode_state(batch, max_seq, device="cuda")
@@ -21,9 +22,12 @@ attention block; the vlm family runs ``models/mllama`` and the audio
 family ``models/whisper``, whose decode states add a cross KV (zeros until
 the caller fills it from ``precompute_cross_kv``). ``remat``
 recomputes each layer (block) in the backward, as the reference's
-``jax.checkpoint`` does; ``launch/train.py`` trains through ``loss``. The
-reference's ``input_structs``, ``supports``, ``param_specs`` and
-``state_specs`` wait for the launch-tooling and distributed slices.
+``jax.checkpoint`` does; ``launch/train.py`` trains through ``loss``.
+``init`` pads the query heads to a multiple of ``tp``;
+``param_specs`` and ``state_specs`` are the reference's named-axis spec
+tuples of the parameters and the decode state
+(``distributed/sharding.py`` places them on a mesh). The reference's
+``input_structs`` and ``supports`` wait for the launch-tooling slice.
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ def _rwkv_decode(params, cfg, batch, state, pos):
     return rwkv6.decode_step(params, cfg, batch["tokens"], state, pos)
 
 
-def _rwkv_init_state(cfg, batch, max_seq, dtype, device):
+def _rwkv_init_state(cfg, batch, max_seq, dtype, device, tp=1):
     return rwkv6.init_state(cfg, batch, device)
 
 
@@ -99,20 +103,29 @@ def _whisper_decode(params, cfg, batch, state, pos):
 
 
 _TRANSFORMER = dict(init=transformer.init, forward=_tfm_forward,
-                    decode=_tfm_decode, init_state=transformer.init_cache)
+                    decode=_tfm_decode, init_state=transformer.init_cache,
+                    param_specs=transformer.param_specs,
+                    state_specs=transformer.cache_specs)
 
 _FAMILY = {
     "dense": _TRANSFORMER,
     "moe": _TRANSFORMER,
     "ssm": dict(init=rwkv6.init, forward=_rwkv_forward, decode=_rwkv_decode,
-                init_state=_rwkv_init_state),
+                init_state=_rwkv_init_state, param_specs=rwkv6.param_specs,
+                state_specs=rwkv6.state_specs),
     "hybrid": dict(init=zamba2.init, forward=_zamba_forward,
-                   decode=_zamba_decode, init_state=zamba2.init_state),
+                   decode=_zamba_decode, init_state=zamba2.init_state,
+                   param_specs=zamba2.param_specs,
+                   state_specs=zamba2.state_specs),
     "vlm": dict(init=mllama.init, forward=_mllama_forward,
                 decode=_mllama_decode, init_state=mllama.init_cache,
+                param_specs=mllama.param_specs,
+                state_specs=mllama.cache_specs,
                 extra_inputs=("vision_embeds",)),
     "audio": dict(init=whisper.init, forward=_whisper_forward,
                   decode=_whisper_decode, init_state=whisper.init_cache,
+                  param_specs=whisper.param_specs,
+                  state_specs=whisper.cache_specs,
                   extra_inputs=("frames",)),
 }
 
@@ -130,8 +143,13 @@ class ModelAdapter:
         """Inputs beside "tokens" that ``forward`` reads."""
         return self._fns.get("extra_inputs", ())
 
-    def init(self, gen: torch.Generator) -> dict:
-        return self._fns["init"](self.cfg, gen)
+    def init(self, gen: torch.Generator, tp: int = 1) -> dict:
+        return self._fns["init"](self.cfg, gen, tp)
+
+    def param_specs(self, fsdp=None, tp: int = 16) -> dict:
+        """Spec tuples mirroring ``init``'s tree; `fsdp` names the mesh
+        axis of ZeRO-3 parameter sharding (None: replicated over data)."""
+        return self._fns["param_specs"](self.cfg, fsdp, tp)
 
     def forward(self, params: dict, batch: dict,
                 remat: bool = False) -> torch.Tensor:
@@ -147,12 +165,17 @@ class ModelAdapter:
                      self.cfg.vocab)
 
     def init_decode_state(self, batch: int, max_seq: int,
-                          dtype=torch.bfloat16, device="cuda") -> dict:
+                          dtype=torch.bfloat16, device="cuda",
+                          tp: int = 1) -> dict:
         return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
-                                       device)
+                                       device, tp)
 
     def decode(self, params: dict, batch: dict, state: dict, pos: int):
         return self._fns["decode"](params, self.cfg, batch, state, pos)
+
+    def state_specs(self) -> dict:
+        """Spec tuples of the decode state's tree."""
+        return self._fns["state_specs"](self.cfg)
 
 
 def get_adapter(arch_id_or_cfg) -> ModelAdapter:

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from ..distributed.sharding import padded_vocab
 from ..kernels.rwkv_scan.ops import rwkv_scan
 from .layers import dense_init, matmul, rmsnorm
-from .transformer import _dtype, _index, _layers, _stack, remat_call
+from .transformer import (_dtype, _index, _layers, _stack, _stacked,
+                          remat_call)
 
 LORA_RANK = 64
 HEAD_DIM = 64
@@ -46,11 +47,13 @@ def n_heads(cfg) -> int:
 # Init
 # ---------------------------------------------------------------------------
 
-def init(cfg, gen: torch.Generator) -> dict:
+def init(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """Random parameters on ``gen``'s device with the reference's structure
     and scales: normal/sqrt(fan_in) projections (the decay LoRA's second
     factor at 0.01, the embedding at 0.02), mixes at 0.5, unit norms, and
-    the fp32 ``w0`` (-5) and ``u`` (0) inside a model of ``cfg.dtype``."""
+    the fp32 ``w0`` (-5) and ``u`` (0) inside a model of ``cfg.dtype``.
+    `tp` changes nothing (no attention heads to pad), as in the
+    reference."""
     dt = _dtype(cfg)
     dev = gen.device
     d = cfg.d_model
@@ -87,6 +90,24 @@ def init(cfg, gen: torch.Generator) -> dict:
         "blocks": _stack([block_init() for _ in range(cfg.n_layers)]),
         "final_norm": full((d,), 1.0),
         "lm_head": dense_init(gen, (d, V), dt),
+    }
+
+
+def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
+    """Spec tuples mirroring init()'s structure (the reference's)."""
+    block = {
+        "mu": (None, None), "wr": (fsdp, "model"), "wk": (fsdp, "model"),
+        "wv": (fsdp, "model"), "wg": (fsdp, "model"), "wo": ("model", fsdp),
+        "w0": (None,), "w_lora_a": (fsdp, None), "w_lora_b": (None, "model"),
+        "u": (None, None), "ln_x": (None,), "tm_norm": (None,),
+        "mu_c": (None, None), "ck": (fsdp, "model"), "cv": ("model", fsdp),
+        "cr": (fsdp, None), "cm_norm": (None,),
+    }
+    return {
+        "embed": ("model", fsdp),
+        "blocks": _stacked(block),
+        "final_norm": (None,),
+        "lm_head": (fsdp, "model"),
     }
 
 
@@ -199,6 +220,15 @@ def init_state(cfg, batch: int, device="cuda") -> dict:
         "x_cm": torch.zeros((L, batch, d), dtype=_dtype(cfg), device=device),
         "S": torch.zeros((L, batch, n_heads(cfg), HEAD_DIM, HEAD_DIM),
                          dtype=torch.float32, device=device),
+    }
+
+
+def state_specs(cfg) -> dict:
+    """The decode state's spec tuples (the reference's)."""
+    return {
+        "x_tm": (None, ("pod", "data"), None),
+        "x_cm": (None, ("pod", "data"), None),
+        "S": (None, ("pod", "data"), "model", None, None),
     }
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import padded_vocab
+from ..distributed.sharding import padded_heads, padded_vocab
 from . import moe as moe_lib
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
                      matmul, rmsnorm, self_attention, swiglu)
@@ -40,19 +40,21 @@ def _stack(trees: list) -> dict:
 # Init
 # ---------------------------------------------------------------------------
 
-def init(cfg, gen: torch.Generator) -> dict:
+def init(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """Random parameters on ``gen``'s device, drawn as the reference draws
     them: normal/sqrt(fan_in) projections, embedding at 0.02, zero biases,
-    unit norms. (torch's generator gives other numbers than jax.random;
-    tests move the reference's parameters across with ``repro_torch.bridge``
-    instead.)"""
+    unit norms; the query heads padded to a multiple of `tp`
+    (``padded_heads``). (torch's generator gives other numbers than
+    jax.random; tests move the reference's parameters across with
+    ``repro_torch.bridge`` instead.)"""
     dt = _dtype(cfg)
     dev = gen.device
+    nH = padded_heads(cfg.n_heads, tp)
     V = padded_vocab(cfg.vocab)
 
     def block_init():
         p = {
-            "attn": attn_params(gen, cfg, cfg.n_heads, cfg.n_kv_heads, dt),
+            "attn": attn_params(gen, cfg, nH, cfg.n_kv_heads, dt),
             "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "ffn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         }
@@ -69,6 +71,52 @@ def init(cfg, gen: torch.Generator) -> dict:
         "lm_head": dense_init(gen, (cfg.d_model, V), dt),
     }
     return params
+
+
+def _stacked(specs: dict) -> dict:
+    """Block specs with the leading (layer) dim of the stacked leaves."""
+    return {k: _stacked(v) if isinstance(v, dict) else (None,) + v
+            for k, v in specs.items()}
+
+
+def attn_specs(cfg, fsdp, tp: int) -> dict:
+    """Spec tuples of ``layers.attn_params``: q and o over ``model``, k
+    and v too where the KV heads divide over TP."""
+    hd = cfg.resolved_head_dim
+    kv_shardable = (cfg.n_kv_heads * hd) % tp == 0 and cfg.n_kv_heads >= tp
+    kv = "model" if kv_shardable else None
+    attn = {"wq": (fsdp, "model"), "wk": (fsdp, kv), "wv": (fsdp, kv),
+            "wo": ("model", fsdp)}
+    if cfg.qkv_bias:
+        attn |= {"bq": ("model",), "bk": (kv,), "bv": (kv,)}
+    if cfg.qk_norm:
+        attn |= {"q_norm": (None,), "k_norm": (None,)}
+    return attn
+
+
+def ffn_specs(fsdp) -> dict:
+    return {"w_gate": (fsdp, "model"), "w_up": (fsdp, "model"),
+            "w_down": ("model", fsdp)}
+
+
+def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
+    """Spec tuples mirroring init()'s structure (the reference's). `fsdp`
+    is the mesh axis name for ZeRO-3 parameter sharding (None to
+    replicate over data)."""
+    block = {"attn": attn_specs(cfg, fsdp, tp), "attn_norm": (None,),
+             "ffn_norm": (None,)}
+    if cfg.moe:
+        block["moe"] = moe_lib.moe_param_specs(cfg, fsdp, tp)
+    else:
+        block["ffn"] = ffn_specs(fsdp)
+    specs = {
+        "embed": ("model", fsdp),
+        "blocks": _stacked(block),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (fsdp, "model")
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -129,15 +177,24 @@ def _layers(tree: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", tp: int = 1) -> dict:
     """Zeroed stacked KV cache (L, b, h_kv, S, hd). bf16 by default, also
     for an fp32 model, as in the reference. With a sliding window S is the
-    window and the cache is a ring buffer."""
+    window and the cache is a ring buffer. `tp` changes nothing: the KV
+    heads are not padded (``padded_kv_heads``)."""
     hd = cfg.resolved_head_dim
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_specs(cfg) -> dict:
+    """The KV cache's spec tuples (the reference's): batch over the DP
+    axes, sequence over ``model`` (its context-parallel decode; the port's
+    decode runs on whole caches)."""
+    s = (None, ("pod", "data"), None, "model", None)
+    return {"k": s, "v": s}
 
 
 def block_decode(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,

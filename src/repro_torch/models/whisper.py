@@ -33,12 +33,13 @@ import math
 
 import torch
 
-from ..distributed.sharding import padded_vocab
+from ..distributed.sharding import padded_heads, padded_vocab
 from .layers import (CHUNKED_ATTN_THRESHOLD, _cached_attention_local,
                      attention_scores, causal_mask, chunked_attention,
                      cross_decode_attention, dense_init, gelu_mlp, layernorm,
                      matmul)
-from .transformer import _dtype, _index, _layers, _stack, remat_call
+from .transformer import (_dtype, _index, _layers, _stack, _stacked,
+                          remat_call)
 
 
 def sinusoid_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -84,14 +85,15 @@ def _ln_init(cfg, dt, dev) -> dict:
             "b": torch.zeros((cfg.d_model,), dtype=dt, device=dev)}
 
 
-def init(cfg, gen: torch.Generator) -> dict:
+def init(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """Random parameters on ``gen``'s device with the reference's structure
     and scales: normal/sqrt(fan_in) projections, the embedding at 0.02,
-    zero biases and LayerNorm shifts, unit LayerNorm scales. The KV heads
-    are the query heads (no tensor-parallel padding in the port yet)."""
+    zero biases and LayerNorm shifts, unit LayerNorm scales. The heads
+    (the KV heads are the query heads) are padded to a multiple of
+    `tp`."""
     dt = _dtype(cfg)
     dev = gen.device
-    nH = cfg.n_heads
+    nH = padded_heads(cfg.n_heads, tp)
 
     def enc_block():
         return {"attn": _attn_init(gen, cfg, nH, dt),
@@ -115,6 +117,20 @@ def init(cfg, gen: torch.Generator) -> dict:
         "ln_enc": _ln_init(cfg, dt, dev),
         "ln_dec": _ln_init(cfg, dt, dev),
     }
+
+
+def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
+    """Spec tuples mirroring init()'s structure (the reference's)."""
+    attn = {"wq": (fsdp, "model"), "bq": ("model",), "wk": (fsdp, "model"),
+            "wv": (fsdp, "model"), "bv": ("model",), "wo": ("model", fsdp),
+            "bo": (None,)}
+    mlp = {"w_up": (fsdp, "model"), "b_up": ("model",),
+           "w_down": ("model", fsdp), "b_down": (None,)}
+    ln = {"w": (None,), "b": (None,)}
+    enc = {"attn": attn, "ln_attn": ln, "mlp": mlp, "ln_mlp": ln}
+    dec = enc | {"xattn": attn, "ln_xattn": ln}
+    return {"embed": ("model", fsdp), "encoder": _stacked(enc),
+            "decoder": _stacked(dec), "ln_enc": ln, "ln_dec": ln}
 
 
 def tied_head(embed: torch.Tensor) -> torch.Tensor:
@@ -223,17 +239,25 @@ def forward(params: dict, cfg, tokens: torch.Tensor, frames: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", tp: int = 1) -> dict:
     """Zeroed stacked caches: self KV (L, b, h, max_seq, hd) and cross KV
-    (L, b, h, n_audio_frames, hd), the KV heads being the query heads. bf16
-    by default, also for an fp32 model, as in the reference."""
-    hd, nH, L = cfg.resolved_head_dim, cfg.n_heads, cfg.n_layers
+    (L, b, h, n_audio_frames, hd), the KV heads being the query heads,
+    padded to a multiple of `tp` as init pads them. bf16 by default, also
+    for an fp32 model, as in the reference."""
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+    nH = padded_heads(cfg.n_heads, tp)
     self_shape = (L, batch, nH, max_seq, hd)
     cross_shape = (L, batch, nH, cfg.n_audio_frames, hd)
     return {"k": torch.zeros(self_shape, dtype=dtype, device=device),
             "v": torch.zeros(self_shape, dtype=dtype, device=device),
             "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
             "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+
+
+def cache_specs(cfg) -> dict:
+    """The caches' spec tuples (the reference's)."""
+    s = (None, ("pod", "data"), None, "model", None)
+    return {"k": s, "v": s, "xk": s, "xv": s}
 
 
 def precompute_cross_kv(params: dict, cfg, enc_out: torch.Tensor) -> tuple:

@@ -32,10 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import SSMConfig
-from ..distributed.sharding import padded_vocab
+from ..distributed.sharding import padded_heads, padded_vocab
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
                      matmul, rmsnorm, self_attention, swiglu)
-from .transformer import _dtype, _index, _layers, _stack, remat_call
+from .transformer import (_dtype, _index, _layers, _stack, _stacked,
+                          attn_specs, ffn_specs, remat_call)
 
 # Tokens of one prompt whose SSD updates (B outer x) * dt are formed at once
 # in _ssd_scan: 4 x 64 tokens of zamba2-1.2b take 256 MB in fp32.
@@ -58,11 +59,12 @@ def ssm_heads(cfg) -> int:
 # Init
 # ---------------------------------------------------------------------------
 
-def init(cfg, gen: torch.Generator) -> dict:
+def init(cfg, gen: torch.Generator, tp: int = 1) -> dict:
     """Random parameters on ``gen``'s device with the reference's structure
     and scales: normal/sqrt(fan_in) projections, the conv taps at 0.5, the
     embedding at 0.02, unit norms, and the fp32 ``A_log`` (0), ``D`` (1)
-    and ``dt_bias`` (-2) inside a model of ``cfg.dtype``."""
+    and ``dt_bias`` (-2) inside a model of ``cfg.dtype``; the shared
+    block's query heads padded to a multiple of `tp`."""
     dt = _dtype(cfg)
     dev = gen.device
     d = cfg.d_model
@@ -92,13 +94,37 @@ def init(cfg, gen: torch.Generator) -> dict:
         "embed": dense_init(gen, (V, d), dt, scale=0.02),
         "blocks": _stack([mamba_init() for _ in range(cfg.n_layers)]),
         "shared": {
-            "attn": attn_params(gen, cfg, cfg.n_heads, cfg.n_kv_heads, dt),
+            "attn": attn_params(gen, cfg, padded_heads(cfg.n_heads, tp),
+                                cfg.n_kv_heads, dt),
             "attn_norm": full((d,), 1.0),
             "ffn": ffn_params(gen, d, cfg.d_ff, dt),
             "ffn_norm": full((d,), 1.0),
         },
         "final_norm": full((d,), 1.0),
         "lm_head": dense_init(gen, (d, V), dt),
+    }
+
+
+def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
+    """Spec tuples mirroring init()'s structure (the reference's)."""
+    mamba = {
+        "in_proj": (fsdp, "model"), "conv_w": (None, "model"),
+        "A_log": (None,), "D": (None,), "dt_bias": (None,),
+        "out_proj": ("model", fsdp), "norm": (None,), "gate_norm": (None,),
+    }
+    attn = attn_specs(cfg, fsdp, tp)
+    shared = {
+        "attn": {k: attn[k] for k in ("wq", "wk", "wv", "wo")},
+        "attn_norm": (None,),
+        "ffn": ffn_specs(fsdp),
+        "ffn_norm": (None,),
+    }
+    return {
+        "embed": ("model", fsdp),
+        "blocks": _stacked(mamba),
+        "shared": shared,
+        "final_norm": (None,),
+        "lm_head": (fsdp, "model"),
     }
 
 
@@ -232,11 +258,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
 
 
 def init_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda") -> dict:
+               device="cuda", tp: int = 1) -> dict:
     """Decode state: per-layer SSM state (fp32) and conv tail (model
     dtype), plus a KV cache in `dtype` (bf16 by default, also for an fp32
     model, as in the reference) for the shared block at each of its
-    application depths: a ring buffer of the window where one is set."""
+    application depths: a ring buffer of the window where one is set.
+    `tp` changes nothing: the KV heads are not padded."""
     s = _ssm(cfg)
     _, n_shared = _pattern(cfg)
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
@@ -250,6 +277,16 @@ def init_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
                             dtype=_dtype(cfg), device=device),
         "k": torch.zeros(kv, dtype=dtype, device=device),
         "v": torch.zeros(kv, dtype=dtype, device=device),
+    }
+
+
+def state_specs(cfg) -> dict:
+    """The decode state's spec tuples (the reference's)."""
+    return {
+        "ssm": (None, ("pod", "data"), "model", None, None),
+        "conv": (None, ("pod", "data"), None, "model"),
+        "k": (None, ("pod", "data"), None, "model", None),
+        "v": (None, ("pod", "data"), None, "model", None),
     }
 
 

@@ -12,12 +12,21 @@ JAX returns new trees; here parameters and moments are updated in place
 UPDATE_ELEMS elements at a time, so that the fp32 temporaries of the
 largest leaf (rwkv6-3b's stacked ``ck``: 734 M elements, 2.9 GB per fp32
 temporary) stay small beside the moments.
+
+On a mesh, parameters, gradients and moments are DTensors placed alike
+(``distributed/sharding.py``): each rank updates its own shards. The
+global norm sums each element once over the mesh: a shard that several
+ranks hold (a Replicate mesh dim) counts on one of them, then the sums
+are added over the mesh.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import counted_once, like, local, sum_over
 
 # Elements of one leaf updated at a time: 64 MB per fp32 temporary.
 UPDATE_ELEMS = 1 << 24
@@ -62,21 +71,35 @@ def tree_leaves(tree: dict) -> list:
 
 
 def adamw_init(params: dict) -> AdamWState:
+    """Zero fp32 moments placed like each parameter, and a 0-d int32 step
+    on the parameters' device."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = tree_leaves(params)[0].device
+        loc = local(p)
+        return like(p, torch.zeros(loc.shape, dtype=torch.float32,
+                                   device=loc.device))
+    dev = local(tree_leaves(params)[0]).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 def global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in fp32
-    (a 0-d tensor on the grads' device)."""
-    total = None
+    (a 0-d tensor on the grads' device); DTensor leaves summed over their
+    mesh, each element once."""
+    total, mesh = None, None
     for g in tree_leaves(grads):
-        for part in g.reshape(-1).split(UPDATE_ELEMS):
+        if isinstance(g, DTensor):
+            mesh = g.device_mesh
+            if not counted_once(g):
+                continue
+        for part in local(g).reshape(-1).split(UPDATE_ELEMS):
             sq = torch.sum(torch.square(part.float()))
             total = sq if total is None else total + sq
+    if mesh is not None:
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=local(g).device)
+        total = sum_over(total.reshape(1), mesh, mesh.mesh_dim_names)[0]
     return torch.sqrt(total)
 
 
@@ -97,7 +120,8 @@ def adamw_update(params: dict, grads: dict, state: AdamWState, *,
     grads, mu, nu = (dict(_leaves(t)) for t in (grads, state.mu, state.nu))
     with torch.no_grad():
         for path, p in _leaves(params):
-            g, m, v = grads[path], mu[path], nu[path]
+            p, g, m, v = (local(x) for x in (p, grads[path], mu[path],
+                                             nu[path]))
             if not (p.shape == g.shape == m.shape == v.shape) \
                     or not p.is_contiguous():
                 raise ValueError(f"adamw_update: leaf {'/'.join(path)}: "

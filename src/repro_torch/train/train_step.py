@@ -8,8 +8,21 @@ first microbatch's grads, cast, start it: zero plus them is the same
 bits). The sum is divided by the number of microbatches and the loss
 averaged, as in the reference. Each microbatch's grads are freed before
 the next one runs, so the memory is constant in the number of
-microbatches. The reference's ``param_specs`` (gradients pinned to the
-parameter sharding) waits for the distributed slice.
+microbatches.
+
+On a mesh (``param_specs`` given and a mesh active,
+``distributed.sharding.use_mesh``) the state lives as DTensors under the
+specs, filtered by ``constrain_like``'s rules: parameters, moments and
+the gradient accumulator alike. Each step gathers every parameter whole
+for the forward and backward, so the model and the kernels' wrappers see
+plain tensors and do the single-process step's math. The batch axes
+(``pod``, ``data``) split each microbatch's rows: every rank holds the
+whole global batch and takes its own rows. Each microbatch's gradient is
+reduced into the parameters' placements (a reduce-scatter over the batch
+axes where a dim is split over them, an all-reduce where the leaf is
+replicated, a local slice over ``model``), then added to the
+accumulator. Where the batch axes hold one rank (a 1x1 mesh) there is no
+communication and every gather is the parameter's own storage.
 
 The step updates the state in place (see ``optimizer``) and returns it.
 """
@@ -18,7 +31,11 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import (BATCH_AXES, active_mesh, constrain_like,
+                                    data_rows, gather, like, reduce_into,
+                                    sum_over)
 from .optimizer import (AdamWState, _leaves, _unflatten, adamw_init,
                         adamw_update)
 
@@ -32,6 +49,14 @@ def train_state_init(params: dict) -> TrainState:
     return TrainState(params=params, opt=adamw_init(params))
 
 
+def state_specs(param_specs: dict) -> TrainState:
+    """Spec tuples of a TrainState whose parameters have `param_specs`:
+    the moments share them; the step counter (None) stays a plain 0-d
+    tensor on every rank."""
+    return TrainState(param_specs, AdamWState(None, param_specs,
+                                              param_specs))
+
+
 def _grads(loss_fn: Callable, params: dict, batch: dict) -> tuple:
     """(loss, grads as a list in leaf order): the leaves are detached and
     set to require grad for the call, so the step leaves no graph on the
@@ -42,51 +67,87 @@ def _grads(loss_fn: Callable, params: dict, batch: dict) -> tuple:
     return loss.detach(), list(grads)
 
 
+def _mesh_of(params: dict):
+    for _, p in _leaves(params):
+        if isinstance(p, DTensor):
+            return p.device_mesh
+    return None
+
+
+def accumulate(loss_fn: Callable, params: dict, batch: dict,
+               microbatches: int = 1) -> tuple:
+    """(loss, grads): the step's loss, averaged over the microbatches, and
+    its gradient tree. On plain parameters: with one microbatch the grads
+    in the parameters' dtype, with more their fp32 mean. On DTensor
+    parameters: each grad a DTensor placed like its parameter, the mean
+    over the microbatches and the batch axes' ranks (fp32 where it was
+    reduced), and the loss averaged over those ranks too."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches {microbatches} < 1")
+    b = next(iter(batch.values())).shape[0]
+    if b % microbatches:
+        raise ValueError(f"batch {b} does not split into {microbatches} "
+                         f"microbatches")
+    mesh = _mesh_of(params)
+    index, ranks = data_rows(mesh)
+    rows = b // microbatches
+    if rows % ranks:
+        raise ValueError(f"microbatch of {rows} rows does not split over "
+                         f"{ranks} ranks of the batch axes")
+    per = rows // ranks
+    refs = [p for _, p in _leaves(params)]
+    full = _unflatten(params, [gather(p) for p in refs])
+    acc, loss_sum = None, None
+    for i in range(microbatches):
+        lo = i * rows + index * per
+        loss, grads = _grads(loss_fn, full,
+                             {k: x[lo:lo + per] for k, x in batch.items()})
+        if mesh is not None:
+            grads = [reduce_into(g, p) for g, p in zip(grads, refs)]
+        if acc is None:
+            acc, loss_sum = grads, loss
+            if microbatches > 1 or ranks > 1:
+                acc = [g.float() for g in acc]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            loss_sum = loss_sum + loss
+        del grads
+    n = microbatches * ranks
+    if n > 1:
+        for a in acc:
+            a.div_(n)
+    if ranks > 1:
+        loss_sum = sum_over(loss_sum.reshape(1), mesh, BATCH_AXES)[0]
+    loss = loss_sum / n if n > 1 else loss_sum
+    return loss, _unflatten(params, [like(p, a) for p, a in zip(refs, acc)])
+
+
 def make_train_step(loss_fn: Callable, *, microbatches: int = 1,
                     lr: float = 3e-4, weight_decay: float = 0.1,
-                    grad_clip: float = 1.0) -> Callable:
+                    grad_clip: float = 1.0,
+                    param_specs: dict | None = None) -> Callable:
     """loss_fn(params, batch) -> scalar loss. Returns
     step(state, batch) -> (state, metrics), metrics {"loss": 0-d fp32
     tensor}.
 
     With microbatches > 1 the global batch (a dict of tensors) is split
-    along axis 0 and the grads accumulated in fp32."""
+    along axis 0 and the grads accumulated in fp32. With `param_specs`
+    (spec tuples mirroring the params) and an active mesh, the state is
+    kept under the specs on that mesh (``constrain_like``; a state placed
+    so already is left as it is) and the grads and their accumulator are
+    pinned to the parameters' placements."""
     if microbatches < 1:
         raise ValueError(f"microbatches {microbatches} < 1")
+    specs = state_specs(param_specs) if param_specs is not None else None
 
-    def update(state: TrainState, grads: dict) -> TrainState:
+    def step(state: TrainState, batch: dict) -> tuple:
+        if specs is not None and active_mesh() is not None:
+            state = constrain_like(state, specs)
+        loss, grads = accumulate(loss_fn, state.params, batch, microbatches)
         params, opt = adamw_update(state.params, grads, state.opt, lr=lr,
                                    weight_decay=weight_decay,
                                    grad_clip=grad_clip)
-        return TrainState(params, opt)
+        return TrainState(params, opt), {"loss": loss}
 
-    def single(state: TrainState, batch: dict) -> tuple:
-        loss, grads = _grads(loss_fn, state.params, batch)
-        return update(state, _unflatten(state.params, grads)), {"loss": loss}
-
-    if microbatches == 1:
-        return single
-
-    def accumulated(state: TrainState, batch: dict) -> tuple:
-        b = next(iter(batch.values())).shape[0]
-        if b % microbatches:
-            raise ValueError(f"batch {b} does not split into {microbatches} "
-                             f"microbatches")
-        parts = {k: x.chunk(microbatches, 0) for k, x in batch.items()}
-        acc, loss_sum = None, None
-        for i in range(microbatches):
-            loss, grads = _grads(loss_fn, state.params,
-                                 {k: p[i] for k, p in parts.items()})
-            if acc is None:
-                acc, loss_sum = [g.float() for g in grads], loss
-            else:
-                for a, g in zip(acc, grads):
-                    a.add_(g)
-                loss_sum = loss_sum + loss
-            del grads
-        for a in acc:
-            a.div_(microbatches)
-        return update(state, _unflatten(state.params, acc)), \
-            {"loss": loss_sum / microbatches}
-
-    return accumulated
+    return step

@@ -1,0 +1,436 @@
+"""The port's distributed training on the CPU: ``distributed/sharding.py``,
+``distributed/elastic.py``, ``launch/mesh.py`` and the mesh path of
+``train/train_step.py`` and ``train/optimizer.py``.
+
+Multi-rank checks run in spawned processes joined into a gloo process
+group by a ``FileStore`` (no network; ``_torch_dist_worker.py``): 4
+ranks for a 2x2 mesh, then 2 ranks for 2x1, 1x2 and ``--mesh 2``. On
+each mesh the first step's loss and gradients (reduced qwen2-7b and
+rwkv6-3b in fp32, the reference's parameters bridged, the JAX parity
+tests' 4 x 16 batch in 2 microbatches split over the data ranks) are
+held against the single-process step at the repo's tolerances, and on
+2x2 against ``jax.value_and_grad``; the driver's losses over 3 steps
+against its single-process run; AdamW on the 2x2 mesh's local shards
+against JAX's. A state saved on 2x2 resumes through ``elastic_resume``
+on 1x2 and 1x1 with bit-equal leaves. The pure parts are held against
+the reference directly: ``init(tp=3)`` shapes, the spec tuples,
+``filter_spec``, ``spec``, ``constrain_like``'s rule, ``viable_meshes``
+and ``shrink_mesh``'s choices."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import _torch_dist_worker as worker
+from repro.compat import tree_map as jax_tree_map
+from repro.configs.base import reduced as jax_reduced
+from repro.configs.registry_configs import ALL_ARCHS as JAX_ARCHS
+from repro.distributed import elastic as jax_elastic
+from repro.distributed import sharding as jax_sharding
+from repro.models.registry import get_adapter as jax_get_adapter
+from repro.train.optimizer import adamw_init as jax_adamw_init
+from repro.train.optimizer import adamw_update as jax_adamw_update
+from repro_torch import bridge
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry_configs import ALL_ARCHS
+from repro_torch.distributed import elastic, sharding
+from repro_torch.launch import mesh as port_mesh
+from repro_torch.launch import train as port_train
+from repro_torch.models.registry import get_adapter
+from repro_torch.train.optimizer import _leaves
+from repro_torch.train.train_step import accumulate
+from test_torch_prefill import bridged_params as dense_bridged
+from test_torch_rwkv6 import bridged as rwkv_bridged
+from test_torch_train import GRAD_TOL, LOSS_TOL, OPT_TOL
+from test_torch_train import _batch as parity_batch
+
+ARCHS = ["qwen2-7b", "rwkv6-3b"]
+MESHES_OF_2 = ["2x1", "1x2", "2"]
+MESHES = ["2x2"] + MESHES_OF_2
+
+
+def _bridged(arch):
+    return rwkv_bridged(64) if arch == "rwkv6-3b" else dense_bridged(arch)
+
+
+def _opt_case(rng):
+    """A tree of fp32 and bf16 leaves placed on 2x2 by its specs (dims
+    split over data, model, both, or neither), and 3 steps of grads."""
+    def leaves():
+        bf = np.asarray(jnp.asarray(rng.standard_normal((8, 6)).astype(
+            np.float32), jnp.bfloat16))
+        return {"embed": bf, "w": rng.standard_normal((4, 10)).astype(
+                    np.float32),
+                "stack": rng.standard_normal((3, 4, 4)).astype(np.float32),
+                "norm": rng.standard_normal((6,)).astype(np.float32)}
+    specs = {"embed": ("model", "data"), "w": ("data", None),
+             "stack": (None, ("data", "model"), None), "norm": (None,)}
+    tree = leaves()
+    grads = [jax_tree_map(lambda a: (a.astype(np.float32) * s).astype(
+        a.dtype), leaves()) for s in (1e-2, 1e-2, 10.0)]
+    return tree, specs, grads
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The single-process references, then the 4-rank and the 2-rank
+    spawns (the latter resumes what the former saved)."""
+    tmp = tmp_path_factory.mktemp("dist")
+    inputs, single = {}, {}
+    for arch in ARCHS:
+        _, cfg, p = _bridged(arch)
+        # The JAX parity tests' batch (tests/test_torch_train.py): 4 x 16
+        # tokens, 2 microbatches of 2 rows, 1 row a data rank.
+        params, batch = bridge.to_torch(p, "cpu"), parity_batch(cfg.vocab)
+        inputs[arch] = (params, batch)
+        ad = get_adapter(cfg)
+        loss, grads = accumulate(
+            lambda q, b: ad.loss(q, b, remat=True), params,
+            {k: torch.from_numpy(v) for k, v in batch.items()},
+            worker.MICRO)
+        run = port_train.train(worker.fp32_cfg(arch), steps=worker.STEPS,
+                               seq_len=worker.SEQ,
+                               global_batch=worker.BATCH,
+                               microbatches=worker.MICRO, device="cpu")
+        single[arch] = {"loss": float(loss), "losses": run.losses,
+                        "grads": {"/".join(k): g.numpy()
+                                  for k, g in _leaves(grads)}}
+    torch.save(inputs, tmp / "inputs.pt")
+    opt = _opt_case(np.random.default_rng(6))
+    torch.save((bridge.to_torch(opt[0], "cpu"), opt[1],
+                [bridge.to_torch(g, "cpu") for g in opt[2]]),
+               tmp / "opt.pt")
+    ck, witness = str(tmp / "ckpt"), str(tmp / "witness.pt")
+    four = worker.spawn(4, str(tmp), [
+        ("meshes", (str(tmp / "inputs.pt"), ["2x2"], ARCHS)),
+        ("adamw_2x2", (str(tmp / "opt.pt"),)),
+        ("save_2x2", (ck, witness))])
+    two = worker.spawn(2, str(tmp), [
+        ("meshes", (str(tmp / "inputs.pt"), MESHES_OF_2, ARCHS)),
+        ("resume", (ck, witness, 2))])
+    return {"single": single, "inputs": inputs, "opt": opt, "ckpt": ck,
+            "witness": witness, "meshes": {**four["meshes"],
+                                           **two["meshes"]},
+            "adamw_2x2": four["adamw_2x2"], "save_2x2": four["save_2x2"],
+            "resume_1x2": two["resume"]}
+
+
+def _close_leaves(got: dict, want: dict, tol=GRAD_TOL):
+    """Every leaf: max |got - want| within `tol` of max |want|."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = np.asarray(w, np.float32)
+        scale = float(np.abs(w).max())
+        assert scale > 0, k
+        assert float(np.abs(np.asarray(got[k], np.float32) - w).max()) \
+            <= tol * scale, k
+
+
+# --- each mesh against the single-process step -------------------------------
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_first_step_matches_single_process(runs, arch, mesh):
+    got, want = runs["meshes"][mesh][arch], runs["single"][arch]
+    assert got["loss"] == pytest.approx(want["loss"], rel=LOSS_TOL)
+    _close_leaves(got["grads"], want["grads"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_losses_over_three_steps_match_single_process(runs, arch, mesh):
+    got, want = runs["meshes"][mesh][arch], runs["single"][arch]
+    assert len(got["losses"]) == worker.STEPS
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_TOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("mesh,axes,tp", [
+    ("2x2", ("data", "model"), 2), ("2x1", ("data", "model"), 1),
+    ("1x2", ("data", "model"), 2), ("2", ("data",), 2)])
+def test_mesh_axes_tp_and_split_leaves(runs, mesh, axes, tp):
+    """The driver's axes and TP (``--mesh 2`` gives ("data",) with TP 2,
+    the reference's quirk), and parameters really split on every mesh."""
+    for arch in ARCHS:
+        got = runs["meshes"][mesh][arch]
+        assert got["axes"] == axes and got["tp"] == tp
+        assert got["split_leaves"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_2x2_step_matches_jax_value_and_grad(runs, arch):
+    """The 2x2 mesh's first step (2 microbatches of 2 rows, each split
+    over 2 data ranks) against jax.value_and_grad of the reference's loss
+    on the whole batch: the mean of equal microbatches' means."""
+    jcfg, _, p = _bridged(arch)
+    jad = jax_get_adapter(jcfg)
+    batch = jax_tree_map(jnp.asarray, runs["inputs"][arch][1])
+    jloss, jgrads = jax.value_and_grad(
+        lambda q: jad.loss(q, batch, remat=True))(
+        jax_tree_map(jnp.asarray, p))
+    got = runs["meshes"]["2x2"][arch]
+    assert got["loss"] == pytest.approx(float(jloss), rel=LOSS_TOL)
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        want["/".join(k.key for k in path)] = np.asarray(leaf)
+    _close_leaves(got["grads"], want)
+
+
+def test_adamw_on_2x2_local_shards_matches_jax(runs):
+    """AdamW over 3 steps (the last one clipped) on the 2x2 mesh's local
+    shards, UPDATE_ELEMS = 7: the global norm counts each element once."""
+    tree, _, grads = runs["opt"]
+    jp = jax_tree_map(jnp.asarray, tree)
+    js = jax_adamw_init(jp)
+    for g in grads:
+        jp, js = jax_adamw_update(jp, jax_tree_map(jnp.asarray, g), js,
+                                  lr=1e-2)
+    got = runs["adamw_2x2"]
+    assert got["step"] == int(js.step) == 3
+    for name, want in (("params", jp), ("mu", js.mu), ("nu", js.nu)):
+        for k, w in want.items():
+            g = got[name][k]
+            g = g.view(np.uint16).view(jnp.bfloat16) if g.dtype == np.int16 \
+                else g
+            np.testing.assert_allclose(
+                np.asarray(jnp.asarray(g, jnp.float32)),
+                np.asarray(w, np.float32), rtol=OPT_TOL, atol=OPT_TOL)
+
+
+# --- elastic resume ----------------------------------------------------------
+
+def test_elastic_resume_on_1x2_bit_equal(runs):
+    assert runs["save_2x2"]["split_leaves"] > 0
+    r = runs["resume_1x2"]
+    assert r["mesh"] == (1, 2) and r["names"] == ("data", "model")
+    assert r["n"] == r["n_witness"] and r["equal"]
+    assert r["split_leaves"] > 0
+
+
+def test_elastic_resume_on_1x1_bit_equal(runs):
+    r = worker.resume(runs["ckpt"], runs["witness"], 1)
+    assert r["mesh"] == (1, 1)
+    assert r["n"] == r["n_witness"] and r["equal"]
+    assert r["split_leaves"] == 0
+
+
+def test_viable_meshes_and_shrink_match_reference(monkeypatch):
+    monkeypatch.setattr(jax_elastic, "Mesh",
+                        lambda devs, names: (devs.shape, names))
+    for n in range(1, 17):
+        assert elastic.viable_meshes(n) == jax_elastic.viable_meshes(n)
+        for md in (16, 8, 6, 4, 3, 2, 1):
+            shape, names = jax_elastic.shrink_mesh(n, md,
+                                                   devices=list(range(n)))
+            assert elastic.shrink_shape(n, md) == shape
+            assert names == ("data", "model")
+
+
+# --- init and specs against the reference ------------------------------------
+
+def _shapes(tree, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_shapes(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = tuple(v.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
+def test_init_tp3_matches_reference_shapes(arch):
+    """init(tp=3) pads the query heads (4 in the reduced configs) to 6, as
+    the reference's init(key, tp=3) does, in every family."""
+    jad = jax_get_adapter(jax_reduced(JAX_ARCHS[arch]))
+    ad = get_adapter(reduced(ALL_ARCHS[arch]))
+    want = jax.eval_shape(lambda: jad.init(jax.random.PRNGKey(0), tp=3))
+    got = ad.init(torch.Generator().manual_seed(0), tp=3)
+    assert _shapes(got) == _shapes(want)
+    assert _shapes(got) != _shapes(ad.init(torch.Generator().manual_seed(0)))\
+        or ad.cfg.family == "ssm"
+
+
+@pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
+def test_decode_state_tp3_matches_reference_shapes(arch):
+    jad = jax_get_adapter(jax_reduced(JAX_ARCHS[arch]))
+    ad = get_adapter(reduced(ALL_ARCHS[arch]))
+    want = jax.eval_shape(lambda: jad.init_decode_state(2, 16, tp=3))
+    got = ad.init_decode_state(2, 16, device="cpu", tp=3)
+    assert _shapes(got) == _shapes(want)
+
+
+@pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
+def test_specs_equal_reference(arch):
+    jad = jax_get_adapter(jax_reduced(JAX_ARCHS[arch]))
+    ad = get_adapter(reduced(ALL_ARCHS[arch]))
+    for fsdp in (None, "data"):
+        for tp in (16, 3, 2, 1):
+            assert ad.param_specs(fsdp, tp) == jad.param_specs(fsdp, tp)
+    assert ad.state_specs() == jad.state_specs()
+
+
+# --- sharding vocabulary -----------------------------------------------------
+
+class _FakeMesh:
+    """What ``spec`` and ``constrain_entries`` read of a DeviceMesh."""
+
+    def __init__(self, shape, names):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+
+
+def test_filter_spec_drops_missing_axes():
+    for entries, names in [((("pod", "data"), None, "model"),
+                            ("data", "model")),
+                           (("pod",), ()), ((None, "x"), ("x",))]:
+        assert sharding.filter_spec(entries, names) == \
+            jax_sharding.filter_spec(entries, names)
+    assert sharding.filter_spec((("pod", "data"), None, "model"),
+                                ("data", "model")) == \
+        (("data",), None, "model")
+
+
+def test_spec_gives_placements():
+    S, R = sharding.Shard, sharding.Replicate
+    m = _FakeMesh((2, 4), ("data", "model"))
+    assert sharding.spec(m, ("pod", "data"), None, "model") == (S(0), S(2))
+    assert sharding.spec(m, None, None) == (R(), R())
+    assert sharding.spec(m, ("data", "model")) == (S(0), S(0))
+    # a mesh dim of one rank holds the whole tensor: Replicate
+    assert sharding.spec(_FakeMesh((1, 4), ("data", "model")),
+                         "data", "model") == (R(), S(1))
+    pm = _FakeMesh((2, 2, 2), ("pod", "data", "model"))
+    assert sharding.spec(pm, ("pod", "data"), "model") == (S(0), S(0), S(1))
+    with pytest.raises(ValueError, match="twice"):
+        sharding.spec(m, "data", "data")
+
+
+def _reference_constrain(monkeypatch, entries, shape, sizes) -> tuple:
+    """The reference's constrain_like on one leaf of `shape` under a mesh
+    of `sizes`: the PartitionSpec it would constrain to, as a tuple."""
+    seen = []
+    monkeypatch.setattr(jax_sharding, "active_mesh", lambda: _FakeJaxMesh(
+        sizes))
+    monkeypatch.setattr(jax_sharding, "mesh_axis_sizes", lambda m: sizes)
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda x, p: seen.append(tuple(p)) or x)
+    jax_sharding.constrain_like({"x": np.empty(shape)}, {"x": entries})
+    got = seen[0] if seen else (None,) * len(shape)
+    return tuple(got) + (None,) * (len(shape) - len(got))
+
+
+class _FakeJaxMesh:
+    def __init__(self, sizes):
+        self.axis_names = tuple(sizes)
+
+
+@pytest.mark.parametrize("sizes,entries,shape", [
+    ({"data": 16, "model": 16}, (("pod", "data"),), (1,)),
+    ({"data": 16, "model": 16}, (None, "model"), (8, 40)),
+    ({"data": 16, "model": 16}, (("pod", "data"), None), (128, 4)),
+    ({"data": 4, "model": 4}, ("data", ("data", "model")), (8, 8)),
+    ({"data": 2, "model": 2}, ("model", "data"), (256, 64)),
+    ({"data": 2, "model": 2}, (None, ("data", "model"), None), (3, 4, 4)),
+    ({"data": 2, "model": 2}, (None, ("data", "model")), (3, 6)),
+    ({"pod": 2, "data": 2, "model": 2}, (("pod", "data"), "model"), (8, 3)),
+    ({"data": 2, "model": 2}, ("data",), (4, 4, 4)),
+])
+def test_constrain_rule_matches_reference(monkeypatch, sizes, entries,
+                                          shape):
+    got = sharding.constrain_entries(entries, shape, sizes)
+    assert got == _reference_constrain(monkeypatch, entries, shape, sizes)
+    flat = [a for e in got if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))]
+    assert len(flat) == len(set(flat))
+
+
+def test_constrain_like_places_on_the_active_mesh():
+    mesh = port_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
+    x = torch.arange(12.0).reshape(3, 4)
+    assert sharding.constrain_like({"x": x}, {"x": ("data", "model")}) \
+        == {"x": x}                                  # no active mesh
+    assert sharding.shard_hint(x, "data", None) is x
+    with sharding.use_mesh(mesh):
+        placed = sharding.constrain_like({"x": x}, {"x": ("data", "model")})
+        assert isinstance(placed["x"], sharding.DTensor)
+        assert sharding.local(placed["x"]).data_ptr() == x.data_ptr()
+        assert sharding.gather(placed["x"]).data_ptr() == x.data_ptr()
+        assert sharding.shard_hint(x, "data", None) is x
+    assert sharding.active_mesh() is None
+
+
+def test_padding_policies_match_reference():
+    for n, tp in [(28, 16), (40, 16), (12, 16), (32, 16), (4, 3), (8, 1)]:
+        assert sharding.padded_heads(n, tp) == \
+            jax_sharding.padded_heads(n, tp)
+        assert sharding.padded_kv_heads(n, tp) == \
+            jax_sharding.padded_kv_heads(n, tp)
+    assert sharding.padded_vocab(51865) == jax_sharding.padded_vocab(51865)
+
+
+# --- process groups: nothing falls back -------------------------------------
+
+def test_mesh_of_another_size_than_the_world_raises():
+    port_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        port_mesh.make_mesh((2, 1), ("data", "model"), "cpu")
+    with pytest.raises(ValueError, match="differ in length"):
+        port_mesh.make_mesh((1,), ("data", "model"), "cpu")
+
+
+def test_failing_nccl_group_raises_without_gloo(monkeypatch):
+    calls = []
+
+    def failing(backend, **kwargs):
+        calls.append(backend)
+        raise RuntimeError("NCCL error: unhandled system error")
+
+    monkeypatch.setattr(port_mesh, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    monkeypatch.setattr(port_mesh.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(port_mesh.dist, "init_process_group", failing)
+    monkeypatch.setattr(port_mesh.torch.cuda, "set_device", lambda i: None)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        port_mesh.init_process_group("cuda")
+    assert calls == ["nccl"]
+
+
+@pytest.mark.parametrize("launcher", [True, False],
+                         ids=["launcher_env", "one_process"])
+def test_process_group_from_the_environment(monkeypatch, launcher):
+    """With a launcher's variables (torchrun's) the group joins them by
+    env://; without, it is this process alone on a HashStore."""
+    calls = []
+    monkeypatch.setattr(port_mesh.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(port_mesh.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    for k, v in (("RANK", "1"), ("WORLD_SIZE", "4"),
+                 ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "29500")):
+        if launcher:
+            monkeypatch.setenv(k, v)
+        else:
+            monkeypatch.delenv(k, raising=False)
+    port_mesh.init_process_group("cpu")
+    [(backend, kw)] = calls
+    assert backend == "gloo"
+    if launcher:
+        assert kw == {"init_method": "env://"}
+    else:
+        assert kw["rank"] == 0 and kw["world_size"] == 1
+        assert isinstance(kw["store"], port_mesh.dist.HashStore)
+
+
+def test_driver_refuses_a_multi_card_mesh_on_cuda(monkeypatch):
+    monkeypatch.setattr(port_train, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    with pytest.raises(ValueError, match="one card"):
+        port_train.build("rwkv6-3b", True, 2, 1e-3, (2, 1), "cuda")
+
+
+def test_parse_mesh():
+    assert port_train.parse_mesh("1x1") == (1, 1)
+    assert port_train.parse_mesh("4") == (4,)
+    with pytest.raises(ValueError):
+        port_train.parse_mesh("2x2x2")

@@ -7,8 +7,12 @@ identical grads against JAX's over 3 steps; the loss and its gradients
 through ``ModelAdapter.loss(..., remat=True)`` against
 ``jax.value_and_grad`` of the reference's, and one ``make_train_step``
 with two microbatches against the reference's, for reduced rwkv6-3b and
-qwen2-7b in fp32 on the reference's (bridged) parameters; and
-``remat=True`` against ``remat=False`` for every family."""
+qwen2-7b in fp32 on the reference's (bridged) parameters; the loss and
+its gradients of granite-moe-3b, zamba2-1.2b, whisper-small and
+llama-3.2-vision-90b against ``jax.value_and_grad`` with ``remat`` off
+and on; ``adamw_update`` on the sliced path (``UPDATE_ELEMS`` 16 and 7)
+with bf16 and fp32 leaves against JAX's over 3 steps; and ``remat=True``
+against ``remat=False`` for every family."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,13 +32,18 @@ from repro_torch import bridge
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.models.registry import get_adapter
+from repro_torch.train import optimizer as port_optimizer
 from repro_torch.train.grad_compress import (ErrorFeedback, compress_int8,
                                              compress_tree, decompress_int8,
                                              decompress_tree, ef_init)
 from repro_torch.train.optimizer import adamw_init, adamw_update, tree_map
 from repro_torch.train.train_step import make_train_step, train_state_init
+from test_torch_mllama import bridged as mllama_bridged
+from test_torch_moe import bridged_params as moe_bridged
 from test_torch_prefill import bridged_params as dense_bridged
 from test_torch_rwkv6 import bridged as rwkv_bridged
+from test_torch_whisper import bridged as whisper_bridged
+from test_torch_zamba2 import bridged as zamba_bridged
 
 # AdamW and compression on identical inputs: both compute in fp32 in the
 # same order; they differ in the last bits of sqrt, pow and division.
@@ -200,6 +209,43 @@ def test_compress_tree_matches_jax():
                 want, bridge.to_numpy(got))
 
 
+def _sliced_tree(rng) -> dict:
+    """Leaves of 7 to 96 elements in bf16 and fp32, a 0-d one among them,
+    so that UPDATE_ELEMS of 16 or 7 slices most of them."""
+    bf = lambda *s: np.asarray(jnp.asarray(
+        rng.standard_normal(s).astype(np.float32), jnp.bfloat16))
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"embed": bf(12, 8), "blocks": {"w": bf(3, 4, 8), "u": f32(3, 5)},
+            "norm": f32(7), "gate": f32()}
+
+
+@pytest.mark.parametrize("elems", [16, 7])
+def test_adamw_update_sliced_and_bf16_matches_jax(elems, monkeypatch):
+    """adamw_update with its leaves updated and normed UPDATE_ELEMS
+    elements at a time (another summation order than the reference's),
+    on bf16 and fp32 leaves, against JAX's over 3 steps, the last one
+    clipped."""
+    monkeypatch.setattr(port_optimizer, "UPDATE_ELEMS", elems)
+    rng = np.random.default_rng(4)
+    p_np = _sliced_tree(rng)
+    jp, tp = jax_tree_map(jnp.asarray, p_np), bridge.to_torch(p_np, "cpu")
+    js, ts = jax_adamw_init(jp), adamw_init(tp)
+    for scale in (1e-2, 1e-2, 10.0):
+        g_np = jax_tree_map(lambda a: (a.astype(np.float32) * scale).astype(
+            a.dtype), _sliced_tree(rng))
+        jp, js = jax_adamw_update(jp, jax_tree_map(jnp.asarray, g_np), js,
+                                  lr=1e-2)
+        tp, ts = adamw_update(tp, bridge.to_torch(g_np, "cpu"), ts, lr=1e-2)
+    assert tp["embed"].dtype == torch.bfloat16
+    for got, want in ((tp, jp), (ts.mu, js.mu), (ts.nu, js.nu)):
+        jax_tree_map(lambda w, g: np.testing.assert_allclose(
+            np.asarray(jnp.asarray(g if g.dtype != np.uint16 else
+                                   g.view(jnp.bfloat16), jnp.float32)),
+            np.asarray(w, np.float32), rtol=OPT_TOL, atol=OPT_TOL),
+            want, bridge.to_numpy(got))
+    assert int(ts.step) == int(js.step) == 3
+
+
 # --- the loss and its gradients against jax.value_and_grad -------------------
 
 def _bridged(arch):
@@ -269,6 +315,45 @@ def test_train_step_matches_jax(arch):
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=LOSS_TOL)
     _close_leaves(bridge.to_numpy(ts.opt.mu), js.opt.mu)
     assert int(ts.opt.step) == int(js.opt.step) == 1
+
+
+def _other_family(arch):
+    """(jax adapter, port adapter, numpy params, numpy batch) for reduced
+    `arch` in fp32 on the reference's parameters with seeded constants,
+    the batch with the family's extra inputs."""
+    bridged = {"granite-moe-3b-a800m": lambda: moe_bridged(arch),
+               "zamba2-1.2b": zamba_bridged,
+               "whisper-small": whisper_bridged,
+               "llama-3.2-vision-90b": mllama_bridged}[arch]
+    jcfg, cfg, p = bridged()
+    batch = _batch(cfg.vocab)
+    n = {"frames": cfg.n_audio_frames, "vision_embeds": cfg.n_vision_tokens}
+    ad = get_adapter(cfg)
+    for name in ad.extra_inputs:
+        batch[name] = np.random.default_rng(5).standard_normal(
+            (4, n[name], cfg.d_model)).astype(np.float32)
+    return jax_get_adapter(jcfg), ad, p, batch
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat_off",
+                                                      "remat_on"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-1.2b",
+                                  "whisper-small", "llama-3.2-vision-90b"])
+def test_loss_and_grads_of_other_families_match_jax(arch, remat):
+    jad, tad, p, batch = _other_family(arch)
+    jloss, jgrads = jax.value_and_grad(
+        lambda q: jad.loss(q, jax_tree_map(jnp.asarray, batch), remat=remat))(
+        jax_tree_map(jnp.asarray, p))
+    leaves = tree_map(lambda t: t.requires_grad_(True),
+                      bridge.to_torch(p, "cpu"))
+    loss = tad.loss(leaves, {k: torch.from_numpy(v) for k, v in
+                             batch.items()}, remat=remat)
+    flat = []
+    tree_map(flat.append, leaves)
+    grads = iter(torch.autograd.grad(loss, flat))
+    tgrads = tree_map(lambda _: next(grads).numpy(), leaves)
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=LOSS_TOL)
+    _close_leaves(tgrads, jgrads)
 
 
 # --- remat changes no gradient ----------------------------------------------
