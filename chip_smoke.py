@@ -22,7 +22,12 @@ GPU, from the root of a checkout:
    shapes include whisper-small's and llama-3.2-vision's products (the
    tied head (768, 51968) among them) and flash_decode's cross-attention
    over 1500 frames and 1601 vision tokens (neither a whole number of
-   4 KB rows).
+   4 KB rows). flash_decode's partial entry (one shard of a cache split
+   by sequence, with its softmax statistics) on every flash_decode case:
+   out bit for bit the whole entry's, m and l against the plain version;
+   each case cut into 2, 4 and 8 contiguous shards (some empty, ring
+   buffers among them), the shards' partials merged against the unsplit
+   kernel, and a planted fault (two shards' m swapped) that must fail.
 3. Drives the main paths at full width in bf16 with random weights from a
    seed, each with the launch counters set to 0 just before it and read
    just after, each model freed before the next:
@@ -35,7 +40,16 @@ GPU, from the root of a checkout:
      tokens (plain torch ops: no kernel launches), and the first 64 tokens
      of each prompt stepped through ``decode_step`` against forward's
      logits: reported in bf16, held in fp32 (weights from the same seed,
-     an fp32 KV cache) within 0.15.
+     an fp32 KV cache) within 0.15. Then qwen2-7b on meshes: served on a
+     1x1 mesh (a one-rank NCCL group, parameters placed as the serve
+     driver places them) with the meshless run's tokens and launches, and
+     meshless again; then two ranks spawned on the one card over gloo
+     (1x2: each rank half of every weight split over ``model``, its half
+     of the KV cache's slots), fed 8 tokens of the meshless run's greedy
+     steps in fp32 at full width cut to 4 layers and in bf16 whole, the
+     gathered logits held at 0.15 against the meshless run's, then
+     serving the driver's requests (the greedy tokens that differ are
+     counted; its step time is that of two ranks sharing one card).
    * granite-moe-3b served as qwen2-7b (32 flash_decode and 161
      rowstream_matmul launches a step: attention, router and head
      products; the expert products are torch.einsum); each layer of one
@@ -138,6 +152,11 @@ launches of one training microbatch on synthesised inputs. ``--only
 train`` builds and checks rwkv_scan, forward and backward, then runs only
 the training phases, profiled split and backward timings included (no
 ``ok`` line), its checkpoint check at full depth (30.7 GB a save).
+``--only mesh`` builds flash_decode and rowstream_matmul, checks both
+(the partial entry and its merges included), serves qwen2-7b without a
+mesh and on a 1x1 mesh, then runs the two ranks on the card (no ``ok``
+line). The partial entry's per-launch times, at S 4096 and 32768 as one
+shard and split over 2 and 4 ranks, come with flash_decode's own timings.
 ``--baseline`` runs either on a tree whose kernel predates its redesign
 (copy this script into that tree's root): it leaves out the checks and
 plan that the redesign added and times the old kernel's device kernels
@@ -874,6 +893,106 @@ def check_flash_launches(torch, dev) -> None:
           f"kernels {kernels} and allocated {allocs} tensors (the outputs)")
 
 
+# The partial flash_decode (one shard of a cache split by sequence): its
+# statistics against the plain version's, m within FD_M_RTOL of max(1, |m|)
+# and l within FD_L_RTOL of l by q's dtype. The tensor-core path rounds each
+# probability to bf16 before it enters the product with V and the sum alike
+# (csrc/flash_decode.cu), so l is off by at most 2^-9 of itself there;
+# 2^-8 leaves a margin and still fails a probability left out of 256.
+FD_M_RTOL = 1e-5
+FD_L_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+# Shard counts of the merge checks: each case whose S they divide is cut
+# into that many contiguous copies, as the ranks of a model axis hold it.
+FD_SHARDS = (2, 4, 8)
+
+
+def shard_parts(flash_partial, q, kc, vc, n_valid: int, n: int) -> list:
+    """(out, m, l) of each of `n` contiguous copies of the caches' slots,
+    shard r valid for the slots of 0..n_valid-1 it holds (a model axis's
+    rank r: ``layers.cached_attention_update``)."""
+    S_loc = kc.shape[2] // n
+    return [flash_partial(q, kc[:, :, r * S_loc:(r + 1) * S_loc].contiguous(),
+                          vc[:, :, r * S_loc:(r + 1) * S_loc].contiguous(),
+                          min(max(n_valid - r * S_loc, 0), S_loc))
+            for r in range(n)]
+
+
+def check_flash_partial(torch, dev) -> dict:
+    """flash_decode_partial on every case of :func:`flash_cases` (their
+    inputs drawn as :func:`check_flash_decode` draws them): its output
+    against its plain version at flash_decode's tolerances and equal bit
+    for bit to the whole-cache entry's, its statistics at FD_M_RTOL and
+    FD_L_RTOL. Then each case cut into 2, 4 and 8 shards where S divides:
+    the shards' partials on the kernel, merged by ``merge_partials``,
+    against the unsplit kernel at flash_decode's tolerances, shards with
+    no valid slot and ring buffers (pos >= S) among them; and a planted
+    fault, the first two non-empty shards' m swapped, which the same
+    verdict must fail in every case where it is planted."""
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      flash_decode_partial)
+    from repro_torch.kernels.flash_decode.ref import (
+        flash_decode_partial_ref, merge_partials)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = {"out": 0.0, "m": 0.0, "l": 0.0, "merged": 0.0}
+    merges = empty = planted = caught = 0
+    cases = flash_cases()
+    for case in cases:
+        q, kc, vc, pos = flash_inputs(torch, gen, case)
+        S = kc.shape[2]
+        n_valid = min(pos + 1, S)
+        out, m, l = flash_decode_partial(q, kc, vc, n_valid)
+        whole = flash_decode(q, kc, vc, pos)
+        ro, rm, rl = flash_decode_partial_ref(q, kc, vc, n_valid)
+        elementwise, scaled, err, scale = flash_verdict(torch, out, ro)
+        m_err = ((m - rm).abs() / rm.abs().clamp(min=1.0)).max().item()
+        l_err = ((l - rl).abs() / rl).max().item()
+        qt = str(q.dtype).split(".")[-1]
+        check(elementwise and scaled and torch.equal(out, whole)
+              and m.dtype == l.dtype == torch.float32
+              and m_err <= FD_M_RTOL and l_err <= FD_L_RTOL[qt],
+              f"flash_decode_partial case {case}: out err {err} (max |ref| "
+              f"{scale}), equal to flash_decode {torch.equal(out, whole)}, "
+              f"m err {m_err}, l err {l_err}")
+        worst["out"] = max(worst["out"], err)
+        worst["m"] = max(worst["m"], m_err)
+        worst["l"] = max(worst["l"], l_err)
+        for n in FD_SHARDS:
+            if S % n:
+                continue
+            parts = shard_parts(flash_decode_partial, q, kc, vc, n_valid, n)
+            outs, ms, ls = (list(x) for x in zip(*parts))
+            merged = merge_partials(outs, ms, ls)
+            elementwise, scaled, err, scale = flash_verdict(torch, merged,
+                                                            whole)
+            check(elementwise and scaled,
+                  f"flash_decode_partial case {case} over {n} shards, "
+                  f"merged: max err {err} against the unsplit kernel (max "
+                  f"|out| {scale})")
+            worst["merged"] = max(worst["merged"], err)
+            merges += 1
+            empty += sum(int(not x.any()) for x in ls)
+            live = [r for r, x in enumerate(ls) if x.all()]
+            if len(live) >= 2:
+                a, b = live[:2]
+                ms[a], ms[b] = ms[b], ms[a]
+                bad = merge_partials(outs, ms, ls)
+                planted += 1
+                caught += not all(flash_verdict(torch, bad, whole)[:2])
+    check(planted > 0 and caught == planted,
+          f"flash_decode_partial: two shards' m swapped went unnoticed in "
+          f"{planted - caught} of {planted} merges")
+    print(f"[kernels] flash_decode_partial: {len(cases)} cases agree with "
+          f"the plain version (out as flash_decode, bit for bit the whole "
+          f"entry's; m within {FD_M_RTOL} relative, l within "
+          f"{FD_L_RTOL}), worst out {worst['out']!r}, m {worst['m']!r}, l "
+          f"{worst['l']!r}; {merges} merges over {FD_SHARDS} shards "
+          f"({empty} shards empty) agree with the unsplit kernel, worst "
+          f"{worst['merged']!r}; the planted fault (two shards' m "
+          f"swapped) caught in {caught} of {planted}")
+    return dict(worst, merges=merges, empty_shards=empty, planted=planted,
+                caught=caught)
+
+
 def scan_inputs(torch, gen, b, s, H, hd, dtype="float32", decay="test"):
     """r, k, v, w (b, s, H, hd) and u (H, hd) on the generator's device.
     decay "test": w in (0.4, 0.9) and u at 0.1, as tests/test_kernels.py
@@ -1296,11 +1415,44 @@ def flash_timings(torch, cfg, lengths=FD_LENGTHS) -> dict:
 
 def flash_phase(lengths=FD_LENGTHS) -> dict:
     """The one-kernel-per-call check, then flash_decode's timings at each
-    cache length."""
+    cache length, then the partial entry's at the long lengths."""
     import torch
     from repro_torch.configs.registry_configs import ALL_ARCHS
     check_flash_launches(torch, torch.device("cuda"))
-    return flash_timings(torch, ALL_ARCHS["qwen2-7b"], lengths)
+    cfg = ALL_ARCHS["qwen2-7b"]
+    out = flash_timings(torch, cfg, lengths)
+    out["partial"] = partial_timings(torch, cfg)
+    return out
+
+
+def partial_timings(torch, cfg, lengths=FD_LENGTHS[1:],
+                    shards=(1, 2, 4)) -> dict:
+    """flash_decode_partial per launch over `cfg`'s layers' caches at
+    each length S, as one shard of S slots and as one rank's shard of S / n
+    slots for n in `shards` (every slot valid): device time from the
+    profiler (its pads and checks, as the other timings), against the
+    byte bound of the shard."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode_partial
+
+    def partial(q, kc, vc, pos):
+        return flash_decode_partial(q, kc, vc, pos + 1)
+
+    out = {}
+    for S in lengths:
+        for n in shards:
+            w = flash_work(torch, cfg, SLOTS, S // n, kernel=partial)
+            L = w["launches_per_step"]
+            ms = device_ms(w["kernel"], w["reps"], FD_KERNELS) / L
+            bound_ms = w["bound_ms"] / L
+            out[f"S{S}/{n}"] = {"ms": ms, "bound_ms": bound_ms,
+                                "slots": S // n}
+            print(f"[time] flash_decode_partial S {S} over {n} rank(s): "
+                  f"{S // n} slots a shard, per launch {ms!r} ms, bound "
+                  f"{bound_ms!r} ms (bytes); at {bound_ms / ms!r} of its "
+                  f"bound")
+            del w
+            torch.cuda.empty_cache()
+    return out
 
 
 def rowstream_products(torch, shapes, baseline=False) -> list:
@@ -1808,15 +1960,16 @@ def rowstream_phase(baseline=False) -> dict:
 
 def serve_phase(torch, cfg, params, per_step: dict, slots=SLOTS,
                 max_seq=MAX_SEQ, n_requests=N_REQ, prompt_len=PROMPT_LEN,
-                max_new=MAX_NEW) -> dict:
+                max_new=MAX_NEW, mesh=None) -> dict:
     """Serve with the launch counters set to 0 just before and read just
-    after; `per_step` is each kernel's launches per decode step."""
+    after; `per_step` is each kernel's launches per decode step (the
+    kernels it names). On a `mesh`, `params` are this rank's shards."""
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.launch.serve import make_requests, serve
     requests = make_requests(n_requests, prompt_len, max_new, cfg.vocab,
                              SEED)
     reset_launch_counters()
-    run = serve(cfg, params, requests, slots, max_seq, "cuda")
+    run = serve(cfg, params, requests, slots, max_seq, "cuda", mesh)
     counts = {name: c.count for name, c in launch_counters().items()}
     b = run.batcher
     check(len(b.completed) == n_requests,
@@ -3050,13 +3203,236 @@ def cross_profiled(torch, c: dict) -> dict:
             "step": bd, "forward": fb}
 
 
+# --- serving on a mesh ---------------------------------------------------------
+# The two-rank check: qwen2-7b on a 1 x MESH_RANKS mesh whose ranks share
+# the one card over gloo (NCCL puts no two ranks on one device), each rank
+# holding its share of every weight split over ``model`` and its slots of
+# the KV cache. MESH_STEPS decode steps are fed the tokens of the meshless
+# run's greedy steps: in fp32 at full width cut to MESH_FP32_LAYERS layers
+# and in bf16 whole, each held against the meshless run at LOGITS_ATOL;
+# then the rank serves the driver's requests. MESH_TIMEOUT_S bounds the
+# ranks' run; they are killed past it.
+MESH_RANKS = 2
+MESH_FP32_LAYERS = 4
+MESH_STEPS = 8
+MESH_TIMEOUT_S = 600
+
+
+def fed_logits(torch, ad, params, tokens, cache_dtype=None, mesh=None):
+    """Logits (steps, b, V) in fp32 of decode steps fed tokens[t] (b, 1) at
+    pos t from a fresh state, its cache in `cache_dtype` where given, on
+    `mesh` where given (`params` then this rank's shards)."""
+    kw = {} if cache_dtype is None else {"dtype": cache_dtype}
+    state = ad.init_decode_state(tokens.shape[1], MAX_SEQ, device="cuda",
+                                 mesh=mesh, **kw)
+    out = []
+    with torch.inference_mode():
+        for pos in range(tokens.shape[0]):
+            lg, state = ad.decode(params, {"tokens": tokens[pos]}, state,
+                                  pos, mesh)
+            out.append(lg[:, 0].float())
+    return torch.stack(out)
+
+
+def mesh_serve_phase(torch, cfg, params, sv: dict) -> dict:
+    """`cfg` served again on a 1x1 mesh (a one-rank NCCL group, destroyed
+    after), its parameters placed as the driver places them, then once
+    more without a mesh: the mesh's tokens equal the meshless runs' bit for
+    bit at the same launches per step."""
+    from repro_torch.launch.mesh import make_mesh, process_group_scope
+    from repro_torch.launch.serve import place_params
+    from repro_torch.models.registry import get_adapter
+    with process_group_scope():
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        placed = place_params(get_adapter(cfg), params, mesh, 1)
+        one = serve_phase(torch, cfg, placed, per_step(cfg), mesh=mesh)
+    del placed
+    again = serve_phase(torch, cfg, params, per_step(cfg))
+    check(one["tokens"] == sv["tokens"] == again["tokens"]
+          and one["counts"] == sv["counts"] == again["counts"],
+          f"{cfg.name} on a 1x1 mesh: tokens or launches differ from the "
+          f"meshless serve ({one['counts']} against {sv['counts']})")
+    print(f"[mesh] {cfg.name} bf16 on a 1x1 mesh: {one['steps']} steps, "
+          f"the meshless run's tokens bit for bit at its launches "
+          f"{one['counts']}; step median {one['median_step_ms']!r} ms "
+          f"against the meshless {sv['median_step_ms']!r} before and "
+          f"{again['median_step_ms']!r} after (mean {one['mean_step_ms']!r}"
+          f", {sv['mean_step_ms']!r}, {again['mean_step_ms']!r})")
+    return {"mesh_1x1": one, "meshless_again": again}
+
+
+def mesh_reference(torch, cfg, params, prompts) -> dict:
+    """What the two-rank check holds its ranks against: MESH_STEPS greedy
+    steps of `cfg` from the first token of each of the first SLOTS
+    prompts on the kernel path (a bf16 cache), the tokens fed at each step
+    and the logits; then the same tokens through `cfg` in fp32 cut to
+    MESH_FP32_LAYERS layers (weights from the same seed, an fp32 cache)."""
+    from repro_torch.launch.serve import greedy_sample
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    state = ad.init_decode_state(SLOTS, MAX_SEQ, device="cuda")
+    tok = torch.tensor([[t[0]] for t in prompts[:SLOTS]], dtype=torch.int32,
+                       device="cuda")
+    toks, lgs = [], []
+    with torch.inference_mode():
+        for pos in range(MESH_STEPS):
+            toks.append(tok)
+            lg, state = ad.decode(params, {"tokens": tok}, state, pos)
+            lgs.append(lg[:, 0].float())
+            tok = greedy_sample(lg)[:, None]
+    tokens = torch.stack(toks)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=MESH_FP32_LAYERS)
+    p32 = init_params(torch, cfg32)
+    lg32 = fed_logits(torch, get_adapter(cfg32), p32, tokens, torch.float32)
+    del p32
+    torch.cuda.empty_cache()
+    return {"tokens": tokens.cpu(), "bfloat16": torch.stack(lgs).cpu(),
+            "float32": lg32.cpu()}
+
+
+def _mesh_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of the two-rank check (a spawned process): a gloo group
+    through a FileStore, the run, its results saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = mesh_rank_run(torch, Path(tmp))
+        torch.save(out, Path(tmp) / f"mesh_out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank_run(torch, tmp: Path) -> dict:
+    """This rank's part of the two-rank check: qwen2-7b in fp32 cut to
+    MESH_FP32_LAYERS layers and in bf16 whole, each from init(tp) on the
+    seed and placed by the serve driver's ``place_params``, fed the
+    reference's tokens; then the bf16 model serves the driver's requests
+    on the mesh. Launches are counted on this rank."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import place_params
+    from repro_torch.models.registry import get_adapter
+    ref = torch.load(tmp / "mesh_ref.pt")
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"), "cuda")
+    tokens = ref["tokens"].to("cuda")
+    qcfg = ALL_ARCHS["qwen2-7b"]
+    out = {}
+    for cfg, cache_dtype in ((dataclasses.replace(
+            qcfg, dtype="float32", n_layers=MESH_FP32_LAYERS),
+            torch.float32), (qcfg, None)):
+        ad = get_adapter(cfg)
+        params = None     # the previous model's shards, freed first
+        torch.cuda.empty_cache()
+        params = place_params(ad, ad.init(torch.Generator(
+            device="cuda").manual_seed(SEED), tp=MESH_RANKS), mesh,
+            MESH_RANKS)
+        torch.cuda.empty_cache()
+        reset_launch_counters()
+        lg = fed_logits(torch, ad, params, tokens, cache_dtype, mesh)
+        out[cfg.dtype] = {
+            "logits": lg.cpu(),
+            "counts": {n: c.count for n, c in launch_counters().items()},
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in _tensors(params))}
+    sv = serve_phase(torch, qcfg, params, {"rowstream_matmul": per_step(
+        qcfg)["rowstream_matmul"]}, mesh=mesh)
+    out["serve"] = {k: sv[k] for k in (
+        "counts", "steps", "tokens", "generated", "tokens_per_s",
+        "median_step_ms", "mean_step_ms", "first_step_ms")}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def two_rank_phase(torch, ref: dict, sv: dict) -> dict:
+    """Spawn MESH_RANKS ranks on the card (:func:`_mesh_rank`), wait for
+    them within MESH_TIMEOUT_S, and hold their logits against `ref`'s
+    (:func:`mesh_reference`) at LOGITS_ATOL, fp32 and bf16; count the
+    served greedy tokens that differ from the meshless serve `sv`'s."""
+    import torch.multiprocessing as mp
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        torch.save(ref, tmp / "mesh_ref.pt")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(
+            MESH_RANKS, str(tmp / "store"), str(tmp)), nprocs=MESH_RANKS,
+            start_method="spawn", join=False)
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                    proc.join()
+                raise SmokeFailure(f"the {MESH_RANKS} mesh ranks ran past "
+                                   f"{MESH_TIMEOUT_S} s and were killed")
+        seconds = time.perf_counter() - t0
+        outs = [torch.load(tmp / f"mesh_out_{r}.pt")
+                for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"seconds": seconds, "peak_bytes": [o["peak_bytes"] for o in outs]}
+    for dt in ("float32", "bfloat16"):
+        got, want = outs[0][dt]["logits"], ref[dt]
+        check(all(torch.equal(o[dt]["logits"], got) for o in outs),
+              f"mesh ranks return different {dt} logits")
+        diff = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool(got.isfinite().all()) and diff <= LOGITS_ATOL,
+              f"qwen2-7b {dt} on 1x{MESH_RANKS}: logits differ from the "
+              f"meshless run by {diff} (> {LOGITS_ATOL})")
+        res[dt] = {"max_diff": diff, "max_logit": scale,
+                   "argmax_agree": agree, "positions": got.shape[0]
+                   * got.shape[1],
+                   "counts": [o[dt]["counts"] for o in outs],
+                   "weight_bytes": [o[dt]["weight_bytes"] for o in outs]}
+        print(f"[mesh] qwen2-7b {dt} on a 1x{MESH_RANKS} mesh sharing the "
+              f"card (gloo), {MESH_STEPS} fed steps: max |mesh - meshless| "
+              f"logits {diff!r} (tolerance {LOGITS_ATOL}; max |logit| "
+              f"{scale!r}), argmax agrees at {agree}/{res[dt]['positions']};"
+              f" launches by rank {res[dt]['counts']}; weight bytes by rank "
+              f"{res[dt]['weight_bytes']}")
+    served = outs[0]["serve"]
+    check(all(o["serve"]["tokens"] == served["tokens"] for o in outs),
+          "mesh ranks recorded different tokens")
+    differ = sum(a != b for rid, toks in sv["tokens"].items()
+                 for a, b in zip(toks, served["tokens"][rid]))
+    res["serve"] = dict(served, tokens_differ=differ,
+                        tokens_total=sum(map(len, sv["tokens"].values())),
+                        counts=[o["serve"]["counts"] for o in outs])
+    del res["serve"]["tokens"]
+    print(f"[mesh] qwen2-7b bf16 served on a 1x{MESH_RANKS} mesh sharing "
+          f"the card: {served['steps']} steps, {differ} of "
+          f"{res['serve']['tokens_total']} greedy tokens differ from the "
+          f"meshless serve; step median {served['median_step_ms']!r} ms, "
+          f"mean {served['mean_step_ms']!r} ms (two ranks on one card, "
+          f"collectives staged through the host: a correctness run, not a "
+          f"speed); launches by rank {res['serve']['counts']}; peak bytes "
+          f"by rank {res['peak_bytes']}; {seconds:.1f} s from spawn to "
+          f"join")
+    return res
+
+
+def mesh_phases(torch, cfg, params, sv: dict, prompts) -> tuple:
+    """The 1x1-mesh serve and the reference of the two-rank check, both
+    on `params`, which the caller frees before :func:`two_rank_phase`."""
+    one = mesh_serve_phase(torch, cfg, params, sv)
+    return one, mesh_reference(torch, cfg, params, prompts)
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
-                                       "mllama", "train"],
+                                       "mllama", "train", "mesh"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -3092,6 +3468,8 @@ def main(argv=None) -> int:
         names = build.KERNELS
     elif args.only in ("rwkv_scan", "train") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
+    elif args.only == "mesh":
+        names = ("flash_decode", "rowstream_matmul")
     else:
         names = (args.only,)
     t0 = time.perf_counter()
@@ -3143,8 +3521,27 @@ def main(argv=None) -> int:
         print(card)
         return 0
     errs = {"flash_decode": check_flash_decode(torch, dev)}
+    partial = check_flash_partial(torch, dev)
     if args.only == "flash_decode":
         flash_phase()
+        print(card)
+        return 0
+    if args.only == "mesh":
+        errs["rowstream_matmul"] = check_rowstream(torch, dev)
+        qcfg = ALL_ARCHS["qwen2-7b"]
+        params = init_params(torch, qcfg)
+        sv = serve_phase(torch, qcfg, params, per_step(qcfg))
+        print_serve("qwen2-7b", sv)
+        prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                            key=lambda r: r.rid)]
+        one, ref = mesh_phases(torch, qcfg, params, sv, prompts)
+        del params
+        torch.cuda.empty_cache()
+        two = two_rank_phase(torch, ref, sv)
+        print(json.dumps({"mesh": {
+            "partial_checks": partial, "mesh_1x1": numbers_of_serve(one),
+            "mesh_1x2": two}}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
     errs.update({"rowstream_matmul": check_rowstream(torch, dev),
@@ -3177,6 +3574,7 @@ def main(argv=None) -> int:
     print_serve("qwen2-7b", sv)
     prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
                                         key=lambda r: r.rid)]
+    mesh_one, mesh_ref = mesh_phases(torch, qcfg, params, sv, prompts)
     logits_phase(torch, qcfg, params, prompts, SLOTS, MAX_SEQ)
     plain_agreement(torch, qcfg, params, sv)
     walls = {"flash_decode": timed_ms(
@@ -3193,6 +3591,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     qd32 = dense_fp32_phase(torch, qcfg, qf["tokens"])
     print_decode("qwen2-7b fp32 (fp32 cache)", qd32)
+    mesh_two = two_rank_phase(torch, mesh_ref, sv)
 
     gcfg = ALL_ARCHS[GRANITE]
     params = init_params(torch, gcfg)
@@ -3321,6 +3720,8 @@ def main(argv=None) -> int:
     check_rowstream_launches(torch, dev)
 
     paths = {"qwen2-7b serve": sv["counts"],
+             "qwen2-7b serve on a 1x1 mesh": mesh_one["mesh_1x1"]["counts"],
+             "qwen2-7b serve again": mesh_one["meshless_again"]["counts"],
              "qwen2-7b forward": qf["counts"],
              "granite-moe-3b serve": gs["counts"],
              "granite-moe-3b forward": gf["counts"],
@@ -3369,6 +3770,10 @@ def main(argv=None) -> int:
                               if k not in ("counts", "per_step")}
             entry["train_split"] = train_prof["split"]
         if name == "flash_decode":
+            entry["partial"] = {"checks": partial,
+                                "per_launch": long_fd.pop("partial")}
+            entry["mesh"] = {"1x1": numbers_of_serve(mesh_one),
+                             "1x2": mesh_two}
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
             for m, cp in cross_prof.items():
@@ -3382,6 +3787,13 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def numbers_of_serve(mesh_one: dict) -> dict:
+    """The 1x1-mesh phase's step times and launches, without its runs."""
+    return {name: {k: sv[k] for k in ("counts", "steps", "median_step_ms",
+                                      "mean_step_ms", "first_step_ms")}
+            for name, sv in mesh_one.items()}
 
 
 def numbers(work: dict) -> dict:

@@ -24,7 +24,10 @@
 //    distributed shared memory and combine them in chunk order, each block
 //    writing its share of the output. Deterministic, no atomics, no second
 //    kernel, nothing allocated but the output. Only the tokens
-//    0..min(pos, S-1) are read.
+//    0..min(pos, S-1) are read. On request the merge also writes each
+//    head's softmax statistics (its max and sum), which a cache split by
+//    sequence over several ranks needs to merge the ranks' partial
+//    results (`flash_decode_partial`).
 // 2. Row-sized asynchronous copies. K and V of a pair are contiguous over
 //    S, so a tile of T tokens is one contiguous range of whole 4 KB rows:
 //    64 tokens on the tensor-core path (16 KB of K and 16 KB of V at d 128
@@ -237,10 +240,14 @@ __host__ __device__ __forceinline__ size_t recv_bytes(int hg, int d) {
 // cluster barrier each block merges the entries it owns in chunk order
 // from its own shared memory and writes them to op (nh, d); no block
 // reads another's memory after the barrier, so none waits at the exit.
+// Where mo and lo are set, the thread that writes a head's column 0 also
+// writes the head's merged max (natural-log units, times the scale) and
+// sum to mo[h] and lo[h].
 template <typename QT, int HG, int NW>
 __device__ __forceinline__ void merge_and_store(
     const float* wm, const float* wl, const float* wacc, float* recv, int d,
-    int nh, QT* __restrict__ op) {
+    int nh, QT* __restrict__ op, float* __restrict__ mo,
+    float* __restrict__ lo) {
   constexpr int NT = NW * 32;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
@@ -298,15 +305,25 @@ __device__ __forceinline__ void merge_and_store(
       a = fmaf(racc[r * E + j], e, a);
     }
     op[i] = from_float<QT>(a / fmaxf(sum, 1e-30f));
+    if (mo != nullptr && i == h * d) {
+      mo[h] = mx;
+      lo[h] = sum;
+    }
   }
+}
+
+// This block's heads' statistics within m_out / l_out (b, h), or null.
+__device__ __forceinline__ float* head_stats(float* stats, size_t head) {
+  return stats == nullptr ? nullptr : stats + head;
 }
 
 template <typename QT, typename KT, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_decode_simt(const QT* __restrict__ q, const KT* __restrict__ kc,
-                  const KT* __restrict__ vc, QT* __restrict__ out, int hkv,
-                  int n_hg, int S, int d, int g, int n_valid, int chunk,
-                  float scale) {
+                  const KT* __restrict__ vc, QT* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  int hkv, int n_hg, int S, int d, int g, int n_valid,
+                  int chunk, float scale) {
   constexpr int HG = MAX_HG;
   extern __shared__ __align__(128) unsigned char smem[];
   cluster_arrive_started();
@@ -474,7 +491,9 @@ flash_decode_simt(const QT* __restrict__ q, const KT* __restrict__ kc,
     }
   }
   merge_and_store<QT, HG, WARPS>(wm, wl, wacc, recv, d, nh,
-                                 out + (pair * g + h0) * d);
+                                 out + (pair * g + h0) * d,
+                                 head_stats(m_out, pair * g + h0),
+                                 head_stats(l_out, pair * g + h0));
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p,
@@ -528,8 +547,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_decode_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ kc,
                  const __nv_bfloat16* __restrict__ vc,
-                 __nv_bfloat16* __restrict__ out, int hkv, int n_hg, int S,
-                 int g, int n_valid, int chunk, float scale) {
+                 __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
+                 int hkv, int n_hg, int S, int g, int n_valid, int chunk,
+                 float scale) {
   constexpr int HG = MAX_HG;
   constexpr int KSTEPS = D / 16;
   constexpr int NTILES = D / 8;
@@ -684,7 +705,8 @@ flash_decode_mma(const __nv_bfloat16* __restrict__ q,
     wl[warp * HG + row] = l_run;
   }
   merge_and_store<__nv_bfloat16, HG, MMA_WARPS>(
-      wm, wl, wacc, recv, D, nh, out + (pair * g + h0) * D);
+      wm, wl, wacc, recv, D, nh, out + (pair * g + h0) * D,
+      head_stats(m_out, pair * g + h0), head_stats(l_out, pair * g + h0));
 }
 
 // Launch `fn` on grid (nsplit, h_kv * head groups, b) in clusters of
@@ -719,8 +741,9 @@ int launch_clusters(void (*fn)(Args...), size_t& smem_set, int nsplit,
 
 template <typename QT, typename KT, bool VEC>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int b, int hkv, int g, int S, int d, int n_valid, int chunk,
-                int nsplit, float scale, cudaStream_t stream) {
+                float* m_out, float* l_out, int b, int hkv, int g, int S,
+                int d, int n_valid, int chunk, int nsplit, float scale,
+                cudaStream_t stream) {
   static size_t smem_set = 48 * 1024;   // the attribute's value so far
   const int TT = PASSES * WARPS * (32 / lanes_per_row(d));
   const size_t smem =
@@ -732,13 +755,15 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
       flash_decode_simt<QT, KT, VEC>, smem_set, nsplit, hkv * n_hg, b,
       THREADS, smem, stream, static_cast<const QT*>(q),
       static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<QT*>(out), hkv, n_hg, S, d, g, n_valid, chunk, scale);
+      static_cast<QT*>(out), m_out, l_out, hkv, n_hg, S, d, g, n_valid,
+      chunk, scale);
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               int b, int hkv, int g, int S, int n_valid, int chunk,
-               int nsplit, float scale, cudaStream_t stream) {
+               float* m_out, float* l_out, int b, int hkv, int g, int S,
+               int n_valid, int chunk, int nsplit, float scale,
+               cudaStream_t stream) {
   static size_t smem_set = 48 * 1024;
   const size_t smem =
       recv_offset(MMA_STAGES * 2 * static_cast<size_t>(MMA_TT) * D * 2, 0)
@@ -748,23 +773,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   return launch_clusters(
       flash_decode_mma<D>, smem_set, nsplit, hkv * n_hg, b, MMA_THREADS,
       smem, stream, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), hkv, n_hg, S, g,
-      n_valid, chunk, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), m_out, l_out,
+      hkv, n_hg, S, g, n_valid, chunk, scale);
 }
 
 // bf16 against bf16 with d a multiple of 64 takes the tensor-core path,
 // the rest the CUDA-core path. Both hold MAX_HG heads per block (zero past
 // g), in ceil(g / MAX_HG) head groups.
 template <typename QT, typename KT>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b,
-             int hkv, int g, int S, int d, int n_valid, int chunk,
-             int nsplit, int vec, float scale, cudaStream_t s) {
-#define FD_MMA(D)                                                           \
-  return launch_mma<D>(q, k, v, out, b, hkv, g, S, n_valid, chunk, nsplit, \
-                       scale, s)
-#define FD_SIMT(VEC)                                                        \
-  return launch_simt<QT, KT, VEC>(q, k, v, out, b, hkv, g, S, d, n_valid, \
-                                  chunk, nsplit, scale, s)
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* m_out, float* l_out, int b, int hkv, int g, int S, int d,
+             int n_valid, int chunk, int nsplit, int vec, float scale,
+             cudaStream_t s) {
+#define FD_MMA(D)                                                        \
+  return launch_mma<D>(q, k, v, out, m_out, l_out, b, hkv, g, S, n_valid, \
+                       chunk, nsplit, scale, s)
+#define FD_SIMT(VEC)                                                       \
+  return launch_simt<QT, KT, VEC>(q, k, v, out, m_out, l_out, b, hkv, g, \
+                                  S, d, n_valid, chunk, nsplit, scale, s)
   if (std::is_same<QT, __nv_bfloat16>::value && vec && d % 64 == 0) {
     switch (d) {
       case 64: FD_MMA(64);
@@ -783,29 +809,37 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // dtypes: 0 = float32, 1 = bfloat16. Supported (q, kv): (f32, f32),
-// (f32, bf16), (bf16, bf16). n_valid = min(pos + 1, S) tokens are read, in
+// (f32, bf16), (bf16, bf16). The first n_valid tokens are read (min(pos +
+// 1, S) of a whole cache; a shard's own count of its slots), in
 // nsplit <= 8 chunks of `chunk` tokens (one cluster of nsplit blocks per
 // pair and head group). vec = 1 when d % 8 == 0 and q and both caches are
 // 16-byte aligned. Writes `out` (b, h, d) in q's dtype and allocates
-// nothing. Returns the cudaError_t of the launch (0 on success).
+// nothing. Where m_out and l_out (b, h) fp32 are not null, also writes each
+// head's softmax statistics over the n_valid tokens: the row max of the
+// scaled logits and the sum of exp(logit - max), as the plain
+// `flash_decode_partial_ref` gives them; null pointers leave the kernels'
+// work as it is without them. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
-                            void* out, int b, int hkv, int g, int S, int d,
-                            int n_valid, int chunk, int nsplit, int vec,
-                            float scale, int q_dtype, int kv_dtype,
-                            void* stream) {
+                            void* out, float* m_out, float* l_out, int b,
+                            int hkv, int g, int S, int d, int n_valid,
+                            int chunk, int nsplit, int vec, float scale,
+                            int q_dtype, int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nsplit < 1 || nsplit > MAX_SPLITS || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((m_out == nullptr) != (l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0 && kv_dtype == 0)
-    return dispatch<float, float>(q, k, v, out, b, hkv, g, S, d, n_valid,
-                                  chunk, nsplit, vec, scale, s);
+    return dispatch<float, float>(q, k, v, out, m_out, l_out, b, hkv, g, S,
+                                  d, n_valid, chunk, nsplit, vec, scale, s);
   if (q_dtype == 0 && kv_dtype == 1)
-    return dispatch<float, __nv_bfloat16>(q, k, v, out, b, hkv, g, S, d,
-                                          n_valid, chunk, nsplit, vec,
-                                          scale, s);
+    return dispatch<float, __nv_bfloat16>(q, k, v, out, m_out, l_out, b,
+                                          hkv, g, S, d, n_valid, chunk,
+                                          nsplit, vec, scale, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, out, b, hkv, g, S, d, n_valid, chunk, nsplit, vec, scale,
-        s);
+        q, k, v, out, m_out, l_out, b, hkv, g, S, d, n_valid, chunk, nsplit,
+        vec, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

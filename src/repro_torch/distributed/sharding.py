@@ -20,13 +20,17 @@ The active mesh is the one installed by :func:`use_mesh` (the reference's
 identity without one. The port computes on whole tensors: its train step
 gathers each parameter before the forward (``train/train_step.py``), so a
 hint on a plain tensor is the identity too, and a DTensor is
-redistributed to the hint.
+redistributed to the hint. The serving step instead computes on each
+rank's local shards and calls the collectives at the end of this file
+(:func:`all_gather`, :func:`all_reduce_sum`, :func:`all_reduce_max`) on
+plain tensors.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard)
 
 BATCH_AXES = ("pod", "data")    # batch dim shards over both DP axes
@@ -306,6 +310,24 @@ def data_rows(mesh) -> tuple[int, int]:
     return index, count
 
 
+def batch_rows(batch: int, mesh) -> tuple[int, int]:
+    """(start, stop): this rank's rows of a batch of `batch` rows whose
+    dim is split over the batch axes by ``constrain_entries``' rule (axes
+    dropped until they divide it), the rows of a rank's coordinates in
+    mesh order; every row where no axis divides it or with no mesh."""
+    if mesh is None:
+        return 0, batch
+    entry = constrain_entries((BATCH_AXES,), (batch,),
+                              mesh_axis_sizes(mesh))[0]
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for m in _dims(mesh, _axes(entry)):
+        index = index * mesh.shape[m] + coord[m]
+        count *= mesh.shape[m]
+    rows = batch // count
+    return index * rows, (index + 1) * rows
+
+
 def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The sum of `x` over the ranks of the mesh axes `axes` (all-reduce),
     `x` itself where they hold one rank."""
@@ -346,6 +368,92 @@ def counted_once(x: torch.Tensor) -> bool:
     coord = mesh.get_coordinate()
     return all(coord[m] == 0 for m, p in enumerate(x.placements)
                if isinstance(p, Replicate) and mesh.shape[m] > 1)
+
+
+# --- collectives of the decode step -----------------------------------------
+# On plain local tensors, over the process group of one mesh axis (or of
+# several, in turn): the identity, with no op and no copy, where there is
+# no mesh, the axis is absent or it holds one rank. Under gloo a CUDA
+# tensor is staged through host memory (gloo's collectives are for host
+# tensors); the decode step sends at most (b, vocab / model) values at
+# once, the gathered logits.
+
+def _group(mesh, axis: str):
+    """The process group of mesh axis `axis`, or None where it holds one
+    rank or is absent."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(axis)) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def model_size(mesh) -> int:
+    """Ranks along the ``model`` axis: 1 where it is absent or there is no
+    mesh."""
+    if mesh is None or TP_AXIS not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(TP_AXIS))
+
+
+def model_rank(mesh) -> int:
+    """This rank's coordinate along the ``model`` axis (0 where absent)."""
+    if mesh is None or TP_AXIS not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(TP_AXIS)
+
+
+def _run(op, x: torch.Tensor, group) -> torch.Tensor:
+    """`op`(t) on a copy t of `x` on the group's device, back on x's."""
+    if x.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        return op(x.cpu()).to(x.device)
+    return op(x.clone())
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The ranks' `x` along `axes` (a mesh axis or a tuple, major first)
+    concatenated along `dim` in rank order."""
+    for axis in reversed((axes,) if isinstance(axes, str) else axes):
+        group = _group(mesh, axis)
+        if group is None:
+            continue
+
+        def gather(t, group=group):
+            parts = [torch.empty_like(t)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim)
+
+        x = _run(gather, x, group)
+    return x
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of the ranks' `x` along `axis`, taken in fp32 (a bf16 `x`
+    is rounded once, at the end)."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x
+
+    def reduce(t):
+        t = t.float()
+        dist.all_reduce(t, group=group)
+        return t
+
+    return _run(reduce, x, group).to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise max of the ranks' `x` along `axis`."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x
+
+    def reduce(t):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t
+
+    return _run(reduce, x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``flash_decode``
 (``src/repro/kernels/flash_decode/kernel.py``). The CUDA source says how a
 pair's valid prefix is split over the blocks of one thread-block cluster;
 this module plans the split for a shape (cached) and launches the kernel on
-PyTorch's current stream, allocating only the output.
+PyTorch's current stream, allocating only the output (and, for the partial
+entry over one shard of a sequence-split cache, the softmax statistics).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ MIN_CHUNK = 32         # tokens: the fastest at 128 slots on an H100 80GB
 @functools.cache
 def _function():
     fn = build.load("flash_decode").flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -73,15 +74,35 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return launch(_function(), q, k_cache, v_cache, pos)
 
 
+def flash_decode_partial(q: torch.Tensor, k_local: torch.Tensor,
+                         v_local: torch.Tensor, n_valid: int) -> tuple:
+    """Launch the kernel over the first ``n_valid`` >= 1 slots of a cache
+    shard (checked CUDA tensors, see ``ops``); returns (out, m, l)."""
+    b, h, _ = q.shape
+    m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    out = _launch(_function(), q, k_local, v_local, n_valid, MIN_CHUNK, m, l)
+    return out, m, l
+
+
 def launch(function, q: torch.Tensor, k_cache: torch.Tensor,
            v_cache: torch.Tensor, pos: int,
            min_chunk: int = MIN_CHUNK) -> torch.Tensor:
     """Launch ``function``, the C entry point of a build of
     ``csrc/flash_decode.cu``, as :func:`flash_decode` does."""
+    return _launch(function, q, k_cache, v_cache,
+                   valid_tokens(pos, k_cache.shape[2]), min_chunk)
+
+
+def _launch(function, q: torch.Tensor, k_cache: torch.Tensor,
+            v_cache: torch.Tensor, n_valid: int, min_chunk: int,
+            m: torch.Tensor | None = None,
+            l: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch over the first `n_valid` slots; the statistics go to `m`
+    and `l` (b, h) fp32 where they are given."""
     b, h, d = q.shape
     hkv, S = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
-    n_valid = valid_tokens(pos, S)
     chunk, nsplit = plan(n_valid, b * hkv * head_groups(g), d,
                          k_cache.element_size(),
                          sm_count(q.device.index or 0), min_chunk)
@@ -90,6 +111,8 @@ def launch(function, q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     err = function(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        None if m is None else m.data_ptr(),
+        None if l is None else l.data_ptr(),
         b, hkv, g, S, d, n_valid, chunk, nsplit, int(vec),
         1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], DTYPE_CODES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)

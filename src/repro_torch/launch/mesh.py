@@ -94,3 +94,25 @@ def make_mesh(shape: tuple, axes: tuple, device="cuda"):
 
 def mesh_devices(mesh) -> int:
     return mesh.size()
+
+
+def parse_mesh(text: str) -> tuple:
+    """The shape of a ``--mesh`` value: ``DATAxMODEL`` or one number."""
+    shape = tuple(int(x) for x in text.split("x"))
+    if len(shape) > 2:
+        raise ValueError(f"--mesh {text}: DATAxMODEL or one number")
+    return shape
+
+
+def driver_mesh(shape: tuple, device: torch.device) -> tuple:
+    """(axes, tp) of a driver's mesh of `shape` on the resolved `device`,
+    the reference's: ("data", "model") with TP the model axis's size, or
+    ("data",) for one number, whose TP is that number all the same. On
+    ``cuda`` a mesh holds one card: a larger one raises (the multi-rank
+    path is checked on the CPU, over gloo)."""
+    if device.type == "cuda" and math.prod(shape) > 1:
+        raise ValueError(
+            f"mesh {'x'.join(map(str, shape))}: on cuda a mesh holds one "
+            f"card (the multi-rank path is checked on the CPU, over gloo)")
+    axes = ("data", "model") if len(shape) == 2 else ("data",)
+    return axes, shape[-1]

@@ -1,4 +1,5 @@
-"""Serving driver: continuous-batching decode on one card.
+"""Serving driver: continuous-batching decode on one card, on a named-axis
+mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
         --requests 12 --slots 4                 # on cuda (the default)
@@ -9,6 +10,8 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --mesh 1x2                  # in each of 2 ranks of a gloo group
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device``. It serves the dense and MoE families (a KV cache), rwkv6 (a
@@ -31,6 +34,18 @@ application, and for llama-3.2-vision, whose cross layers keep no self
 KV.
 ``pos`` stays a host int, so a step reads nothing back from the device but
 the sampled tokens.
+
+``--mesh DATAxMODEL`` (default 1x1; one number is ``data`` with that TP, as
+in the reference and ``launch/train.py``) must cover the process group
+(``launch/mesh.py``): without a launcher the driver is one process, so a
+larger mesh needs ranks started around it. Parameters come from
+``init(tp=model)`` and each rank keeps its shards under the family's
+``param_specs(tp=model)``. Every rank runs the same deterministic batcher
+and decodes its rows of the slot array; the sampled tokens are gathered
+over the batch axes, so every rank records the same tokens. On a
+``model`` axis of several ranks the dense family decodes tensor- and
+context-parallel (``models/transformer.py``); the other families are
+refused there. On ``cuda`` a mesh holds one card.
 """
 from __future__ import annotations
 
@@ -40,13 +55,17 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..configs.base import reduced
 from ..configs.registry_configs import ALL_ARCHS
-from ..models.registry import get_adapter
+from ..distributed.sharding import (BATCH_AXES, all_gather, batch_rows,
+                                    constrain_like, local_tree)
+from ..models.registry import check_decode_mesh, get_adapter
 from ..serve.batching import ContinuousBatcher, Request
 from ..serve.kv_cache import ROW_BYTES
+from .mesh import driver_mesh, make_mesh, parse_mesh, process_group_scope
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -73,20 +92,33 @@ class ServeRun:
     step_seconds: list
 
 
+def place_params(adapter, params: dict, mesh, tp: int) -> dict:
+    """This rank's shards of `params` (the same on every rank) under the
+    family's ``param_specs(tp=tp)``, replicated over ``data``: plain
+    tensors, the parameters themselves where nothing is split."""
+    return local_tree(constrain_like(params, adapter.param_specs(None, tp),
+                                     mesh))
+
+
 def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
-          device) -> ServeRun:
+          device, mesh=None) -> ServeRun:
     """Answer ``requests`` with greedy decoding over ``slots`` batch slots
     on ``device``, with a ``max_seq`` KV cache (dense, MoE; plus the
     never-filled cross KV of vlm and audio), a recurrent state (rwkv6) or
     both (zamba2). Each step's time is taken on
     the host clock after the sampled tokens reach the host, so it includes
-    the device's work."""
+    the device's work. On a `mesh` every rank calls this with the same
+    requests and its shards of the parameters (:func:`place_params`),
+    decodes its rows of the slots and gathers the sampled tokens."""
     device = resolve_device(device)
     adapter = get_adapter(cfg)
     batcher = ContinuousBatcher(slots)
     for req in requests:
         batcher.submit(req)
-    cache = adapter.init_decode_state(slots, max_seq, device=device)
+    cache = adapter.init_decode_state(slots, max_seq, device=device,
+                                      mesh=mesh)
+    r0, r1 = batch_rows(slots, mesh)
+    loud = mesh is None or dist.get_rank() == 0
     cur = np.zeros((slots, 1), np.int32)
     pos = 0
     tokens_out = 0
@@ -97,10 +129,13 @@ def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
             ts = time.perf_counter()
             for slot, req in batcher.schedule():
                 cur[slot, 0] = req.prompt[0]
-            tokens = torch.from_numpy(cur).to(device)
+            tokens = torch.from_numpy(cur[r0:r1]).to(device)
             logits, cache = adapter.decode(params, {"tokens": tokens}, cache,
-                                           pos)
-            out = greedy_sample(logits).cpu().numpy()
+                                           pos, mesh)
+            out = greedy_sample(logits)
+            if r1 - r0 < slots:
+                out = all_gather(out, mesh, BATCH_AXES, 0)
+            out = out.cpu().numpy()
             finished = batcher.record_tokens(out)
             for slot in range(slots):
                 if batcher.active[slot] is not None:
@@ -108,7 +143,7 @@ def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,
             tokens_out += sum(1 for r in batcher.active if r is not None)
             pos = min(pos + 1, max_seq - 1)
             step_seconds.append(time.perf_counter() - ts)
-            for req in finished:
+            for req in finished if loud else ():
                 print(f"[serve] request {req.rid} done "
                       f"({len(req.out_tokens)} tokens)")
     return ServeRun(batcher, tokens_out, time.perf_counter() - t0,
@@ -126,17 +161,29 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL (or one number: data, with that TP); "
+                         "its size is the number of ranks")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = ALL_ARCHS[args.arch]
     if args.reduced:
         cfg = reduced(cfg)
+    shape = parse_mesh(args.mesh)
+    axes, tp = driver_mesh(shape, device)
+    check_decode_mesh(cfg, shape[1] if len(shape) == 2 else 1)
     requests = make_requests(args.requests, args.prompt_len, args.max_new,
                              cfg.vocab, args.seed)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = get_adapter(cfg).init(gen)
-    run = serve(cfg, params, requests, args.slots, args.max_seq, device)
+    adapter = get_adapter(cfg)
+    with process_group_scope():
+        mesh = make_mesh(shape, axes, device)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = place_params(adapter, adapter.init(gen, tp=tp), mesh, tp)
+        run = serve(cfg, params, requests, args.slots, args.max_seq, device,
+                    mesh)
+        if dist.get_rank():
+            return 0
 
     b = run.batcher
     print(f"[serve] {len(b.completed)} requests, {b.steps} decode steps, "

@@ -42,7 +42,6 @@ refuses them.
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from dataclasses import dataclass, field
 
@@ -58,15 +57,7 @@ from ..distributed import checkpoint as ckpt
 from ..distributed.sharding import constrain_like, local_tree, use_mesh
 from ..models.registry import get_adapter
 from ..train.train_step import TrainState, make_train_step, train_state_init
-from .mesh import make_mesh, process_group_scope
-
-
-def parse_mesh(text: str) -> tuple:
-    """The shape of a ``--mesh`` value: ``DATAxMODEL`` or one number."""
-    shape = tuple(int(x) for x in text.split("x"))
-    if len(shape) > 2:
-        raise ValueError(f"--mesh {text}: DATAxMODEL or one number")
-    return shape
+from .mesh import driver_mesh, make_mesh, parse_mesh, process_group_scope
 
 
 def build(arch, use_reduced: bool, microbatches: int, lr: float,
@@ -86,15 +77,7 @@ def build(arch, use_reduced: bool, microbatches: int, lr: float,
             f"does not make (the reference's train driver cannot train it "
             f"either)")
     dev = resolve_device(device)
-    if dev.type == "cuda" and math.prod(mesh_shape) > 1:
-        raise ValueError(
-            f"mesh {'x'.join(map(str, mesh_shape))}: on cuda a mesh holds "
-            f"one card (the multi-rank path is checked on the CPU, over "
-            f"gloo)")
-    # The reference's axes: ("data", "model"), or ("data",) for one
-    # number, whose TP is that number all the same.
-    axes = ("data", "model") if len(mesh_shape) == 2 else ("data",)
-    tp = mesh_shape[-1]
+    axes, tp = driver_mesh(mesh_shape, dev)
     mesh = make_mesh(mesh_shape, axes, dev)
 
     def loss_fn(params, batch):

@@ -13,6 +13,14 @@ take ``mm``, ``torch.matmul`` over all rows of a prompt. A decode step's
 cross-attention against a KV computed once per request (vision patches,
 encoder output) also goes through the flash-decode kernel
 (``cross_decode_attention``).
+
+On a mesh whose ``model`` axis holds several ranks the dense decode step
+runs tensor- and context-parallel, as the reference's partitioning does:
+each rank projects with its shards of the weights (its own heads, its
+columns of the SwiGLU), the heads are gathered, each rank attends over its
+slots of a KV cache split by sequence (``cached_attention_update``), and
+the row-parallel products are summed over the ranks
+(``distributed/sharding.py``'s collectives).
 """
 from __future__ import annotations
 
@@ -22,7 +30,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_decode.ops import flash_decode
+from ..distributed.sharding import (TP_AXIS, all_gather, all_reduce_max,
+                                    all_reduce_sum, model_rank, model_size)
+from ..kernels.flash_decode.ops import flash_decode, flash_decode_partial
 from ..kernels.rowstream_matmul.ops import rowstream_matmul
 
 # ---------------------------------------------------------------------------
@@ -271,6 +281,52 @@ def cross_decode_attention(q: torch.Tensor, xk: torch.Tensor,
     return out.reshape(b, hq, 1, hd)
 
 
+def cached_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int,
+                            slot: int, mesh=None,
+                            seq_len: Optional[int] = None) -> torch.Tensor:
+    """One decode step against a KV cache, split by sequence over the
+    mesh's ``model`` axis where it can be (the reference's decision).
+
+    q: (b, h, 1, hd), every query head; k_new/v_new: (b, h_kv, 1, hd);
+    k_cache/v_cache: this rank's (b, h_kv, S_loc, hd); ``seq_len``: the
+    whole cache's S (default: the caches' own length). Returns (b, h, 1,
+    hd); the new token's K/V are written in place.
+
+    Where ``model`` holds n > 1 ranks and divides S, rank r holds slots
+    r * S / n onwards: it writes the new token only if it owns ``slot``,
+    attends over its valid slots through ``flash_decode_partial`` and the
+    ranks merge with one all-reduce max of the row maxima and one
+    all-reduce sum of the weighted outputs and sums (the reference's pmax
+    and two psums, here packed into one). Else, as where the mesh is
+    absent, the caches are whole and the local path runs. The reference
+    takes its shard_map branch on a ``model`` axis of one rank too (the
+    same math); here that axis takes the local path, so that a 1x1 mesh
+    is the meshless step, launch for launch."""
+    S = k_cache.shape[2] if seq_len is None else seq_len
+    n = model_size(mesh)
+    if n == 1 or S % n:
+        return _cached_attention_local(q, k_new, v_new, k_cache, v_cache,
+                                       pos, slot)
+    S_loc = S // n
+    if k_cache.shape[2] != S_loc:
+        raise ValueError(f"cached_attention_update: a cache of {S} slots "
+                         f"over {n} ranks holds {S_loc} a rank, not "
+                         f"{k_cache.shape[2]}")
+    b, hq, _, hd = q.shape
+    start = model_rank(mesh) * S_loc
+    if 0 <= slot - start < S_loc:
+        k_cache[:, :, slot - start] = k_new[:, :, 0].to(k_cache.dtype)
+        v_cache[:, :, slot - start] = v_new[:, :, 0].to(v_cache.dtype)
+    n_valid = min(max(pos + 1 - start, 0), S_loc)
+    out, m, l = flash_decode_partial(q.reshape(b, hq, hd).contiguous(),
+                                     k_cache, v_cache, n_valid)
+    w = l * torch.exp(m - all_reduce_max(m, mesh, TP_AXIS))
+    acc = all_reduce_sum(torch.cat([w[..., None] * out.float(),
+                                    w[..., None]], -1), mesh, TP_AXIS)
+    out = acc[..., :hd] / torch.clamp(acc[..., hd:], min=1e-30)
+    return out.to(q.dtype).reshape(b, hq, 1, hd)
+
+
 def _cached_attention_local(q, k_new, v_new, kc, vc, pos: int,
                             slot: int) -> torch.Tensor:
     """Single-shard cached attention: write the new token's K/V at
@@ -290,13 +346,22 @@ def _cached_attention_local(q, k_new, v_new, kc, vc, pos: int,
 
 def decode_attention(params: dict, x: torch.Tensor, cfg,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, slot: Optional[int] = None) -> torch.Tensor:
+                     pos: int, slot: Optional[int] = None, mesh=None,
+                     seq_len: Optional[int] = None) -> torch.Tensor:
     """Single-token GQA decode. x: (b, 1, d); caches: (b, h_kv, S, hd).
 
     ``pos`` is the true sequence position (drives RoPE and validity);
     ``slot`` is the cache slot to write (defaults to ``pos``; sliding-window
     archs pass ``pos % window``). Returns out (b, 1, d); the caches are
-    updated in place."""
+    updated in place.
+
+    With a ``mesh`` whose ``model`` axis holds several ranks, ``params``
+    are this rank's shards: wq (and bq) its columns, so its own query
+    heads, wk/wv (bk/bv) too where they are split, wo its rows. The heads
+    are gathered for the attention (``cached_attention_update``, the caches
+    this rank's shards of a cache of ``seq_len`` slots), its output cut
+    back to this rank's heads, and the products with wo summed over the
+    ranks."""
     b = x.shape[0]
     if slot is None:
         slot = pos
@@ -304,9 +369,21 @@ def decode_attention(params: dict, x: torch.Tensor, cfg,
     posb = torch.full((b, 1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
-    out = _cached_attention_local(q, k, v, k_cache, v_cache, pos, slot)
+    tp = model_size(mesh) > 1
+    if tp:
+        nq = q.shape[1]
+        q = all_gather(q, mesh, TP_AXIS, 1)
+        if k.shape[1] < cfg.n_kv_heads:
+            k = all_gather(k, mesh, TP_AXIS, 1)
+            v = all_gather(v, mesh, TP_AXIS, 1)
+    out = cached_attention_update(q, k, v, k_cache, v_cache, pos, slot, mesh,
+                                  seq_len)
+    if tp:
+        r = model_rank(mesh)
+        out = out[:, r * nq:(r + 1) * nq]
     out = out.transpose(1, 2).reshape(b, 1, -1)
-    return matmul(out, params["wo"])
+    out = matmul(out, params["wo"])
+    return all_reduce_sum(out, mesh, TP_AXIS) if tp else out
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,13 @@ recomputes each layer (block) in the backward, as the reference's
 ``init`` pads the query heads to a multiple of ``tp``;
 ``param_specs`` and ``state_specs`` are the reference's named-axis spec
 tuples of the parameters and the decode state
-(``distributed/sharding.py`` places them on a mesh). The reference's
-``input_structs`` and ``supports`` wait for the launch-tooling slice.
+(``distributed/sharding.py`` places them on a mesh). ``init_decode_state``
+and ``decode`` take a ``mesh`` (default none: the meshless step): each
+rank decodes its rows of the batch, and the dense family also decodes on
+a ``model`` axis of several ranks, tensor- and context-parallel
+(``models/transformer.py``); the other families raise there
+(:func:`check_decode_mesh`). The reference's ``input_structs`` and
+``supports`` wait for the launch-tooling slice.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
+from ..distributed.sharding import batch_rows, model_size
 from . import mllama, rwkv6, transformer, whisper, zamba2
 
 
@@ -60,8 +66,20 @@ def _tfm_forward(params, cfg, batch, remat):
     return transformer.forward(params, cfg, batch["tokens"], remat)
 
 
-def _tfm_decode(params, cfg, batch, state, pos):
-    return transformer.decode_step(params, cfg, batch["tokens"], state, pos)
+def _tfm_decode(params, cfg, batch, state, pos, mesh=None):
+    return transformer.decode_step(params, cfg, batch["tokens"], state, pos,
+                                   mesh)
+
+
+def check_decode_mesh(cfg, model: int) -> None:
+    """Raise where `cfg`'s family has no tensor-parallel decode and the
+    mesh's ``model`` axis holds `model` > 1 ranks."""
+    if model > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family decodes on a model axis "
+            f"of one rank only; a model axis of {model} waits for ROADMAP "
+            f"Queue 1 item 4c (tensor-parallel decode of the MoE, rwkv6, "
+            f"zamba2, whisper and mllama families)")
 
 
 def _rwkv_forward(params, cfg, batch, remat):
@@ -166,11 +184,30 @@ class ModelAdapter:
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype=torch.bfloat16, device="cuda",
-                          tp: int = 1) -> dict:
-        return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
-                                       device, tp)
+                          tp: int = 1, mesh=None) -> dict:
+        """The decode state of `batch` rows; on a `mesh` this rank's share
+        (its rows, and for the dense and MoE families the KV cache's
+        shard, ``transformer.init_cache``)."""
+        if mesh is None:
+            return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
+                                           device, tp)
+        check_decode_mesh(self.cfg, model_size(mesh))
+        if self._fns is _TRANSFORMER:
+            return transformer.init_cache(self.cfg, batch, max_seq, dtype,
+                                          device, tp, mesh)
+        start, stop = batch_rows(batch, mesh)
+        return self._fns["init_state"](self.cfg, stop - start, max_seq,
+                                       dtype, device, tp)
 
-    def decode(self, params: dict, batch: dict, state: dict, pos: int):
+    def decode(self, params: dict, batch: dict, state: dict, pos: int,
+               mesh=None):
+        """One decode step; on a `mesh`, of this rank's rows, `params`
+        this rank's shards (see ``transformer.decode_step``)."""
+        if mesh is None:
+            return self._fns["decode"](params, self.cfg, batch, state, pos)
+        check_decode_mesh(self.cfg, model_size(mesh))
+        if self._fns is _TRANSFORMER:
+            return _tfm_decode(params, self.cfg, batch, state, pos, mesh)
         return self._fns["decode"](params, self.cfg, batch, state, pos)
 
     def state_specs(self) -> dict:

@@ -9,14 +9,25 @@ products through torch.matmul (the JAX package has no prefill kernel) and
 takes the reference's ``remat`` option (each block recomputed in the
 backward, :func:`remat_call`); ``decode_step`` runs its weight products
 through the row-stream kernel and its attention through the flash-decode
-kernel.
+kernel. On a mesh (``init_cache`` and ``decode_step`` with ``mesh``) each
+rank decodes its rows of the batch; where the ``model`` axis holds
+several ranks, the dense step is tensor-parallel on each rank's shards of
+the parameters (``param_specs``: the embedding's vocab rows, the head's
+columns, the attention and SwiGLU products' columns or rows) and
+context-parallel on its slots of the KV cache (``cache_specs``), as the
+reference's partitioning computes it.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import padded_heads, padded_vocab
+from ..distributed.sharding import (BATCH_AXES, TP_AXIS, all_gather,
+                                    all_reduce_sum, batch_rows,
+                                    constrain_entries, local,
+                                    mesh_axis_sizes, model_rank, model_size,
+                                    padded_heads, padded_vocab, placements)
 from . import moe as moe_lib
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
                      matmul, rmsnorm, self_attention, swiglu)
@@ -177,56 +188,132 @@ def _layers(tree: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda", tp: int = 1) -> dict:
+               device="cuda", tp: int = 1, mesh=None) -> dict:
     """Zeroed stacked KV cache (L, b, h_kv, S, hd). bf16 by default, also
     for an fp32 model, as in the reference. With a sliding window S is the
     window and the cache is a ring buffer. `tp` changes nothing: the KV
-    heads are not padded (``padded_kv_heads``)."""
+    heads are not padded (``padded_kv_heads``).
+
+    On a `mesh`, this rank's shard under ``cache_specs`` by
+    ``constrain_entries``' rule: its rows of the batch
+    (``sharding.batch_rows``) and, where ``model`` holds n > 1 ranks that
+    divide S, its S / n slots. A cache split by sequence is a DTensor
+    (its storage the shard, its shape the whole cache's), so that the step
+    knows the whole S; any other is the plain local tensor."""
     hd = cfg.resolved_head_dim
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if mesh is None:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    start, stop = batch_rows(batch, mesh)
+    n = model_size(mesh)
+    split = n > 1 and S % n == 0
+    local_shape = (cfg.n_layers, stop - start, cfg.n_kv_heads,
+                   S // n if split else S, hd)
+    cache = {k: torch.zeros(local_shape, dtype=dtype, device=device)
+             for k in ("k", "v")}
+    if not split:
+        return cache
+    places = placements(mesh, constrain_entries(
+        cache_specs(cfg)["k"], shape, mesh_axis_sizes(mesh)))
+    return {k: DTensor.from_local(t, mesh, places, run_check=False)
+            for k, t in cache.items()}
 
 
 def cache_specs(cfg) -> dict:
     """The KV cache's spec tuples (the reference's): batch over the DP
-    axes, sequence over ``model`` (its context-parallel decode; the port's
-    decode runs on whole caches)."""
-    s = (None, ("pod", "data"), None, "model", None)
+    axes, sequence over ``model`` (its context-parallel decode)."""
+    s = (None, BATCH_AXES, None, TP_AXIS, None)
     return {"k": s, "v": s}
 
 
 def block_decode(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
-                 vc: torch.Tensor, pos: int, slot: int) -> torch.Tensor:
+                 vc: torch.Tensor, pos: int, slot: int, mesh=None,
+                 seq_len: int | None = None) -> torch.Tensor:
     """One layer of the decode step: h (b, 1, d) -> (b, 1, d); writes the
-    new token's K/V into this layer's caches kc/vc at `slot`."""
+    new token's K/V into this layer's caches kc/vc at `slot`. With a
+    tensor-parallel `mesh` (see :func:`decode_step`), `bp` holds this
+    rank's shards and kc/vc its shards of caches of `seq_len` slots."""
     x = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
-    h = h + decode_attention(bp["attn"], x, cfg, kc, vc, pos, slot)
+    h = h + decode_attention(bp["attn"], x, cfg, kc, vc, pos, slot, mesh,
+                             seq_len)
     x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
-    f = moe_lib.moe_ffn(bp["moe"], x, cfg) if cfg.moe \
-        else swiglu(bp["ffn"], x)
+    if cfg.moe:
+        f = moe_lib.moe_ffn(bp["moe"], x, cfg)
+    else:
+        f = swiglu(bp["ffn"], x)
+        if mesh is not None and bp["ffn"]["w_gate"].shape[1] < cfg.d_ff:
+            f = all_reduce_sum(f, mesh, TP_AXIS)
     return h + f
 
 
 def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
-                pos: int) -> tuple:
+                pos: int, mesh=None) -> tuple:
     """token: (b, 1) int; pos: host int. Returns (logits (b, 1, V_padded),
     cache).
 
     The cache is updated in place, one slot per layer (JAX returns a new
     cache); the returned cache is the same dict. With a sliding window the
-    slot is ``pos % S``."""
-    h = params["embed"][token]
-    L = cache["k"].shape[0]
+    slot is ``pos % S``, S the whole cache's length.
+
+    On a `mesh` the tokens, the cache (``init_cache(mesh=...)``) and the
+    logits are this rank's rows. Where ``model`` holds one rank the step is
+    the meshless one. Where it holds n > 1 (the dense family only),
+    `params` are this rank's shards under ``param_specs(tp=n)`` (query
+    heads padded by ``init(tp=n)``): the embedding looks up the tokens in
+    its vocab rows, zeroes the others and sums over ``model`` (one term is
+    non-zero, so the sum is exact); each layer runs tensor-parallel
+    (``block_decode``); the head's columns give this rank's logits, which
+    are gathered over ``model``, so a greedy sampler sees every column."""
+    n = model_size(mesh)
+    if n > 1 and cfg.moe:
+        raise NotImplementedError(f"{cfg.name}: the MoE family does not "
+                                  f"decode on a model axis of {n} ranks")
+    tp = mesh if n > 1 else None
+    kc_all, vc_all = local(cache["k"]), local(cache["v"])
+    L = kc_all.shape[0]
     S = cache["k"].shape[3]
     slot = pos % S if cfg.sliding_window else pos
+    if tp is not None:
+        _check_tp_shards(params, cfg, n)
+    h = _embed(params["embed"], token, cfg, tp)
     blocks = params["blocks"]
     for i in range(L):
-        h = block_decode(cfg, h, _index(blocks, i), cache["k"][i],
-                         cache["v"][i], pos, slot)
+        h = block_decode(cfg, h, _index(blocks, i), kc_all[i], vc_all[i],
+                         pos, slot, tp, S)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return matmul(h, params["lm_head"]), cache
+    logits = matmul(h, params["lm_head"])
+    if tp is not None and logits.shape[-1] < padded_vocab(cfg.vocab):
+        logits = all_gather(logits, tp, TP_AXIS, -1)
+    return logits, cache
+
+
+def _embed(embed: torch.Tensor, token: torch.Tensor, cfg,
+           mesh) -> torch.Tensor:
+    """The rows of `token` (b, 1): a lookup, or, where `embed` holds this
+    rank's rows of the vocab, the vocab-parallel lookup summed over
+    ``model``."""
+    rows = embed.shape[0]
+    if mesh is None or rows == padded_vocab(cfg.vocab):
+        return embed[token]
+    idx = token - model_rank(mesh) * rows
+    inside = (idx >= 0) & (idx < rows)
+    h = embed[idx.clamp(0, rows - 1)] * inside[..., None].to(embed.dtype)
+    return all_reduce_sum(h, mesh, TP_AXIS)
+
+
+def _check_tp_shards(params: dict, cfg, n: int) -> None:
+    """Raise unless the query projection is split by whole heads over the n
+    ranks of ``model``, as ``init(tp=n)`` and ``param_specs`` make it."""
+    hd = cfg.resolved_head_dim
+    cols = params["blocks"]["attn"]["wq"].shape[-1]
+    if cols * n != padded_heads(cfg.n_heads, n) * hd:
+        raise ValueError(
+            f"{cfg.name}: wq holds {cols} columns on this rank; a model "
+            f"axis of {n} ranks needs 1/{n} of "
+            f"{padded_heads(cfg.n_heads, n)} heads of {hd} (parameters "
+            f"from init(tp={n}), placed by param_specs)")
 
 
 def _index(tree: dict, i: int) -> dict:

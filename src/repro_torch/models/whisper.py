@@ -16,7 +16,7 @@ kernel. In ``decode_step`` every weight product goes through
 ``layers.matmul`` (the row-stream kernel), the head included: it reads
 :func:`tied_head`, a contiguous copy of ``embed.T`` made once per
 parameter set. The self-attention goes through
-``layers._cached_attention_local`` and the cross-attention through
+``layers.cached_attention_update`` and the cross-attention through
 ``layers.cross_decode_attention``, so both through the flash-decode kernel.
 ``precompute_cross_kv`` fills the cross KV from the encoder output; the
 serve driver, as the reference's, never calls it.
@@ -34,8 +34,8 @@ import math
 import torch
 
 from ..distributed.sharding import padded_heads, padded_vocab
-from .layers import (CHUNKED_ATTN_THRESHOLD, _cached_attention_local,
-                     attention_scores, causal_mask, chunked_attention,
+from .layers import (CHUNKED_ATTN_THRESHOLD, attention_scores,
+                     cached_attention_update, causal_mask, chunked_attention,
                      cross_decode_attention, dense_init, gelu_mlp, layernorm,
                      matmul)
 from .transformer import (_dtype, _index, _layers, _stack, _stacked,
@@ -285,7 +285,7 @@ def dec_block_step(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
     q = _heads(cfg, x, a["wq"], a["bq"], matmul)
     k = _heads(cfg, x, a["wk"], None, matmul)
     v = _heads(cfg, x, a["wv"], a["bv"], matmul)
-    out = _cached_attention_local(q, k, v, kc, vc, pos, pos)
+    out = cached_attention_update(q, k, v, kc, vc, pos, pos)
     out = out.transpose(1, 2).reshape(b, 1, -1)
     h = h + (matmul(out, a["wo"]) + a["bo"])
     xq = _heads(cfg, _ln(bp["ln_xattn"], h), xa["wq"], xa["bq"], matmul)

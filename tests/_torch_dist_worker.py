@@ -1,7 +1,8 @@
-"""Worker processes for tests/test_torch_distributed.py. Each joins a gloo
-process group through a ``FileStore`` (a file, no network), runs one job
-of the port on a mesh and, on rank 0, saves what the test compares. No
-JAX here: the workers import only the port."""
+"""Worker processes for tests/test_torch_distributed.py and
+tests/test_torch_cp_attention.py. Each joins a gloo process group through
+a ``FileStore`` (a file, no network), runs one job of the port on a mesh
+and, on rank 0, saves what the test compares. No JAX here: the workers
+import only the port."""
 from __future__ import annotations
 
 import os
@@ -15,8 +16,10 @@ from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import sharding
 from repro_torch.distributed.elastic import elastic_resume
+from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, parse_mesh
+from repro_torch.models import layers
 from repro_torch.models.registry import get_adapter
 from repro_torch.train import optimizer
 from repro_torch.train.optimizer import _leaves, adamw_init, adamw_update
@@ -127,8 +130,118 @@ def resume(ckpt_dir, witness_path, n_devices):
             "equal": all(equal), "split_leaves": _split_leaves(leaves)}
 
 
+# The serving checks: the reference driver's requests at the CPU parity
+# tests' size (tests/test_torch_serve.py).
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 2, 8, 128
+# The families that serve on the data axis only.
+DATA_ONLY_ARCHS = ("rwkv6-3b", "granite-moe-3b-a800m", "zamba2-1.2b",
+                   "whisper-small", "llama-3.2-vision-90b")
+
+
+def _data_mesh(text):
+    return make_mesh(parse_mesh(text), ("data", "model"), "cpu")
+
+
+def _served(arch, mesh) -> dict:
+    """The serve loop's greedy tokens for reduced fp32 `arch` from its own
+    seeded init, on `mesh` (None: one process)."""
+    cfg = fp32_cfg(arch)
+    ad = get_adapter(cfg)
+    params = ad.init(torch.Generator().manual_seed(0))
+    if mesh is not None:
+        params = port_serve.place_params(ad, params, mesh, 1)
+    run = port_serve.serve(cfg, params, port_serve.make_requests(
+        SERVE_REQUESTS, 16, SERVE_NEW, cfg.vocab, 0), SERVE_SLOTS,
+        SERVE_MAX_SEQ, "cpu", mesh)
+    return {r.rid: r.out_tokens for r in run.batcher.completed}
+
+
+def serve_meshes(inputs_path, mesh_texts):
+    """For each mesh and each arch of the inputs (reduced fp32; the
+    reference's parameters, seeded and as its driver makes them; the
+    tokens of each step; the cache's max_seq): the decode steps on the
+    mesh from an fp32 cache, each rank its rows, the logits gathered over
+    the data axis; the local shapes of the placed parameters and of the
+    cache and the cache's whole S; the serve loop's greedy tokens on the
+    mesh (the reference driver's requests, a bf16 cache); and the serve
+    driver's exit code on the mesh (its own seeded bf16 model). On a mesh
+    whose model axis holds one rank, also each data-only family's tokens
+    served on the mesh and in one process."""
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for text in mesh_texts:
+        mesh = _data_mesh(text)
+        tp = parse_mesh(text)[-1]
+        res = out[text] = {}
+        for arch, (params, serve_params, tokens, max_seq) in inputs.items():
+            cfg = fp32_cfg(arch)
+            ad = get_adapter(cfg)
+            placed = port_serve.place_params(ad, params, mesh, tp)
+            b = tokens.shape[1]
+            cache = ad.init_decode_state(b, max_seq, dtype=torch.float32,
+                                         device="cpu", mesh=mesh)
+            r0, r1 = sharding.batch_rows(b, mesh)
+            logits = []
+            with torch.inference_mode():
+                for pos, tok in enumerate(tokens):
+                    lg, cache = ad.decode(placed, {"tokens": tok[r0:r1]},
+                                          cache, pos, mesh)
+                    logits.append(sharding.all_gather(
+                        lg, mesh, sharding.BATCH_AXES, 0))
+            run = port_serve.serve(
+                cfg, port_serve.place_params(ad, serve_params, mesh, tp),
+                port_serve.make_requests(SERVE_REQUESTS, 16, SERVE_NEW,
+                                         cfg.vocab, 0),
+                SERVE_SLOTS, SERVE_MAX_SEQ, "cpu", mesh)
+            res[arch] = {
+                "logits": torch.stack(logits).numpy(),
+                "local": {"/".join(p): tuple(t.shape)
+                          for p, t in _leaves(placed)},
+                "cache": tuple(sharding.local(cache["k"]).shape),
+                "cache_seq": cache["k"].shape[3],
+                "tokens": {r.rid: r.out_tokens
+                           for r in run.batcher.completed},
+                "steps": run.batcher.steps}
+        if tp == 1:
+            res["families"] = {arch: (_served(arch, mesh),
+                                      _served(arch, None))
+                               for arch in DATA_ONLY_ARCHS}
+        res["driver"] = port_serve.main(
+            ["--reduced", "--device", "cpu", "--mesh", text, "--requests",
+             str(SERVE_REQUESTS), "--slots", str(SERVE_SLOTS), "--max-new",
+             str(SERVE_NEW)])
+    return out
+
+
+def cp_attention(inputs_path, mesh_texts):
+    """``layers.cached_attention_update`` on each mesh for each case (q,
+    k_new, v_new, caches, pos, slot) of the inputs: each rank its batch
+    rows and its slots of the caches; the output gathered over the data
+    axis and the caches over both, in fp32."""
+    cases = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for text in mesh_texts:
+        mesh = _data_mesh(text)
+        n, r = sharding.model_size(mesh), sharding.model_rank(mesh)
+        res = out[text] = []
+        for q, kn, vn, kc, vc, pos, slot in cases:
+            r0, r1 = sharding.batch_rows(q.shape[0], mesh)
+            s_loc = kc.shape[2] // n
+            kl, vl = (c[r0:r1, :, r * s_loc:(r + 1) * s_loc].clone()
+                      for c in (kc, vc))
+            o = layers.cached_attention_update(
+                q[r0:r1], kn[r0:r1], vn[r0:r1], kl, vl, pos, slot, mesh,
+                kc.shape[2])
+            gather = (lambda t: sharding.all_gather(sharding.all_gather(
+                t, mesh, "model", 2), mesh, sharding.BATCH_AXES, 0))
+            res.append((sharding.all_gather(o, mesh, sharding.BATCH_AXES, 0),
+                        gather(kl), gather(vl), tuple(kl.shape)))
+    return out
+
+
 JOBS = {"meshes": meshes, "adamw_2x2": adamw_2x2, "save_2x2": save_2x2,
-        "resume": resume}
+        "resume": resume, "serve_meshes": serve_meshes,
+        "cp_attention": cp_attention}
 
 
 def _main(rank, world, store_path, out_path, jobs):

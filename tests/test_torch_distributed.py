@@ -15,7 +15,17 @@ against JAX's. A state saved on 2x2 resumes through ``elastic_resume``
 on 1x2 and 1x1 with bit-equal leaves. The pure parts are held against
 the reference directly: ``init(tp=3)`` shapes, the spec tuples,
 ``filter_spec``, ``spec``, ``constrain_like``'s rule, ``viable_meshes``
-and ``shrink_mesh``'s choices."""
+and ``shrink_mesh``'s choices.
+
+Serving on a mesh (``launch/serve.py``, ``models/transformer.py``): in
+the same spawns, reduced fp32 qwen2-7b and h2o-danube-1.8b (a sliding
+window, its ring buffer wrapping) decode eight steps on 2x2, 1x2 and
+2x1 from the reference's ``init(tp=2)`` parameters bridged, against the
+single-process port and JAX's ``decode_step``; the serve loop on each
+mesh emits the reference driver's greedy tokens; each rank holds 1/model
+of every weight split over ``model`` and S/model cache slots; on 2x1 the
+other families serve their one-process tokens. A 1x1 mesh is the
+meshless step, call for call."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +39,7 @@ from repro.configs.base import reduced as jax_reduced
 from repro.configs.registry_configs import ALL_ARCHS as JAX_ARCHS
 from repro.distributed import elastic as jax_elastic
 from repro.distributed import sharding as jax_sharding
+from repro.launch import serve as jax_serve
 from repro.models.registry import get_adapter as jax_get_adapter
 from repro.train.optimizer import adamw_init as jax_adamw_init
 from repro.train.optimizer import adamw_update as jax_adamw_update
@@ -37,10 +48,14 @@ from repro_torch.configs.base import reduced
 from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.distributed import elastic, sharding
 from repro_torch.launch import mesh as port_mesh
+from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
+from repro_torch.models import layers, transformer
 from repro_torch.models.registry import get_adapter
 from repro_torch.train.optimizer import _leaves
 from repro_torch.train.train_step import accumulate
+from test_torch_cp_attention import ModelAxis
+from test_torch_prefill import _seed_biases_and_norms
 from test_torch_prefill import bridged_params as dense_bridged
 from test_torch_rwkv6 import bridged as rwkv_bridged
 from test_torch_train import GRAD_TOL, LOSS_TOL, OPT_TOL
@@ -49,6 +64,15 @@ from test_torch_train import _batch as parity_batch
 ARCHS = ["qwen2-7b", "rwkv6-3b"]
 MESHES_OF_2 = ["2x1", "1x2", "2"]
 MESHES = ["2x2"] + MESHES_OF_2
+# Serving: each arch with its cache's max_seq over DECODE_STEPS steps of
+# DECODE_B rows. qwen2-7b's 8 slots put shard 1 of 2 empty for 4 steps;
+# h2o-danube-1.8b's 4-slot ring buffer wraps after 4 (slot pos % 4 over
+# the whole cache, 2 slots a rank).
+SERVE_ARCHS = {"qwen2-7b": 8, "h2o-danube-1.8b": 4}
+SERVE_MESHES_OF_2 = ["1x2", "2x1"]
+SERVE_MESHES = ["2x2"] + SERVE_MESHES_OF_2
+DECODE_STEPS, DECODE_B = 8, 4
+DECODE_TOL = 1e-5
 
 
 def _bridged(arch):
@@ -98,6 +122,8 @@ def runs(tmp_path_factory):
                         "grads": {"/".join(k): g.numpy()
                                   for k, g in _leaves(grads)}}
     torch.save(inputs, tmp / "inputs.pt")
+    serve_in, serve_ref = _serve_references()
+    torch.save(serve_in, tmp / "serve.pt")
     opt = _opt_case(np.random.default_rng(6))
     torch.save((bridge.to_torch(opt[0], "cpu"), opt[1],
                 [bridge.to_torch(g, "cpu") for g in opt[2]]),
@@ -106,15 +132,89 @@ def runs(tmp_path_factory):
     four = worker.spawn(4, str(tmp), [
         ("meshes", (str(tmp / "inputs.pt"), ["2x2"], ARCHS)),
         ("adamw_2x2", (str(tmp / "opt.pt"),)),
-        ("save_2x2", (ck, witness))])
+        ("save_2x2", (ck, witness)),
+        ("serve_meshes", (str(tmp / "serve.pt"), ["2x2"]))])
     two = worker.spawn(2, str(tmp), [
         ("meshes", (str(tmp / "inputs.pt"), MESHES_OF_2, ARCHS)),
-        ("resume", (ck, witness, 2))])
+        ("resume", (ck, witness, 2)),
+        ("serve_meshes", (str(tmp / "serve.pt"), SERVE_MESHES_OF_2))])
     return {"single": single, "inputs": inputs, "opt": opt, "ckpt": ck,
             "witness": witness, "meshes": {**four["meshes"],
                                            **two["meshes"]},
             "adamw_2x2": four["adamw_2x2"], "save_2x2": four["save_2x2"],
-            "resume_1x2": two["resume"]}
+            "resume_1x2": two["resume"], "serve_in": serve_in,
+            "serve_ref": serve_ref,
+            "serve": {**four["serve_meshes"], **two["serve_meshes"]}}
+
+
+def _serve_references():
+    """For each serving arch: the workers' inputs (the reference's
+    init(tp=2) parameters bridged, seeded and as its driver makes them;
+    DECODE_STEPS steps of tokens; max_seq) and the references: the
+    single-process port's and JAX's decode logits from fp32 caches, and
+    the reference driver's greedy tokens on the same requests."""
+    inputs, refs = {}, {}
+    rng = np.random.default_rng(7)
+    for arch, max_seq in SERVE_ARCHS.items():
+        jcfg = jax_reduced(JAX_ARCHS[arch], dtype="float32")
+        jad = jax_get_adapter(jcfg)
+        plain = jad.init(jax.random.PRNGKey(0), tp=2)
+        # The reference driver's parameters are init(tp=1): the same tree
+        # when the heads divide over 2, as in every reduced config.
+        assert jax.tree_util.tree_all(jax_tree_map(
+            lambda a, b: bool((a == b).all()), plain,
+            jad.init(jax.random.PRNGKey(0), tp=1)))
+        plain = jax_tree_map(np.asarray, plain)
+        seeded = _seed_biases_and_norms(plain, np.random.default_rng(0))
+        tokens = rng.integers(0, jcfg.vocab, (DECODE_STEPS, DECODE_B, 1)
+                              ).astype(np.int32)
+        inputs[arch] = (bridge.to_torch(seeded, "cpu"),
+                        bridge.to_torch(plain, "cpu"),
+                        torch.from_numpy(tokens), max_seq)
+
+        ad = get_adapter(worker.fp32_cfg(arch))
+        tparams = bridge.to_torch(seeded, "cpu")
+        tcache = ad.init_decode_state(DECODE_B, max_seq,
+                                      dtype=torch.float32, device="cpu")
+        jcache = jad.init_decode_state(DECODE_B, max_seq, dtype=jnp.float32)
+        jstep = jax.jit(lambda p, t, c, pos: jad.decode(p, {"tokens": t}, c,
+                                                        pos))
+        jparams = jax_tree_map(jnp.asarray, seeded)
+        single, want = [], []
+        with torch.inference_mode():
+            for pos, tok in enumerate(tokens):
+                lg, tcache = ad.decode(tparams, {"tokens": torch.from_numpy(
+                    tok)}, tcache, pos)
+                single.append(lg.numpy())
+                jlg, jcache = jstep(jparams, jnp.asarray(tok), jcache,
+                                    jnp.array(pos, jnp.int32))
+                want.append(np.asarray(jlg))
+        refs[arch] = {"single": np.stack(single), "jax": np.stack(want),
+                      "tokens": _jax_driver_tokens(arch)}
+    return inputs, refs
+
+
+def _jax_driver_tokens(arch) -> dict:
+    """The reference driver's greedy tokens for reduced fp32 `arch` on the
+    workers' requests (tests/test_torch_serve.py's capture)."""
+    batchers = []
+
+    class Capture(jax_serve.ContinuousBatcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            batchers.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_serve, "ContinuousBatcher", Capture)
+        mp.setattr(jax_serve, "reduced",
+                   lambda cfg: jax_reduced(cfg, dtype="float32"))
+        assert jax_serve.main([
+            "--arch", arch, "--reduced", "--requests",
+            str(worker.SERVE_REQUESTS), "--slots", str(worker.SERVE_SLOTS),
+            "--max-new", str(worker.SERVE_NEW), "--max-seq",
+            str(worker.SERVE_MAX_SEQ)]) == 0
+    (b,) = batchers
+    return {r.rid: r.out_tokens for r in b.completed}
 
 
 def _close_leaves(got: dict, want: dict, tol=GRAD_TOL):
@@ -434,3 +534,156 @@ def test_parse_mesh():
     assert port_train.parse_mesh("4") == (4,)
     with pytest.raises(ValueError):
         port_train.parse_mesh("2x2x2")
+
+
+# --- serving on a mesh --------------------------------------------------------
+
+@pytest.mark.parametrize("arch", sorted(SERVE_ARCHS))
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+def test_mesh_decode_matches_single_process_and_jax(runs, mesh, arch):
+    """Eight steps, tensor-parallel on the model axis and context-parallel
+    over the cache's slots, each rank its rows: logits within 1e-5 of the
+    single-process port and of JAX's decode_step."""
+    got = runs["serve"][mesh][arch]["logits"]
+    ref = runs["serve_ref"][arch]
+    assert got.shape == ref["single"].shape
+    for name in ("single", "jax"):
+        np.testing.assert_allclose(got, ref[name], rtol=DECODE_TOL,
+                                   atol=DECODE_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_ARCHS))
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+def test_mesh_serve_tokens_match_jax_driver(runs, mesh, arch):
+    got = runs["serve"][mesh][arch]
+    want = runs["serve_ref"][arch]["tokens"]
+    assert got["tokens"] == want
+    assert len(want) == worker.SERVE_REQUESTS
+    assert got["steps"] == worker.SERVE_REQUESTS // worker.SERVE_SLOTS \
+        * worker.SERVE_NEW
+
+
+def _split_dims(arch, mesh) -> dict:
+    """{leaf path: the dims the model axis splits} under param_specs(tp)
+    by constrain_entries' rule on the mesh's sizes."""
+    data, model = port_mesh.parse_mesh(mesh)
+    ad = get_adapter(worker.fp32_cfg(arch))
+    specs = dict(_leaves(ad.param_specs(None, model)))
+    params = dict(_leaves(runs_params(arch)))
+    out = {}
+    for path, spec in specs.items():
+        entries = sharding.constrain_entries(
+            spec, tuple(params[path].shape), {"data": data, "model": model})
+        out["/".join(path)] = [i for i, e in enumerate(entries)
+                               if "model" in sharding._axes(e)]
+    return out
+
+
+def runs_params(arch):
+    return get_adapter(worker.fp32_cfg(arch)).init(
+        torch.Generator().manual_seed(0), tp=2)
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_ARCHS))
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+def test_mesh_rank_holds_its_share(runs, mesh, arch):
+    """Every weight with a model spec that divides is 1/model on the rank
+    (the rest whole), so its bytes are 1/model; the cache has S/model
+    slots of its rows, and the step sees the whole S."""
+    data, model = port_mesh.parse_mesh(mesh)
+    got = runs["serve"][mesh][arch]
+    full = {"/".join(p): tuple(t.shape)
+            for p, t in _leaves(runs["serve_in"][arch][0])}
+    split = _split_dims(arch, mesh)
+    assert set(got["local"]) == set(full)
+    for path, shape in full.items():
+        want = tuple(n // model if i in split[path] else n
+                     for i, n in enumerate(shape))
+        assert got["local"][path] == want, path
+    if model > 1:
+        for path in ("embed", "lm_head", "blocks/attn/wq", "blocks/attn/wo",
+                     "blocks/ffn/w_gate", "blocks/ffn/w_down"):
+            assert split[path], path
+        local = sum(np.prod(got["local"][p]) for p in split if split[p])
+        whole = sum(np.prod(full[p]) for p in split if split[p])
+        assert local * model == whole
+    S = SERVE_ARCHS[arch]
+    cfg = worker.fp32_cfg(arch)
+    assert got["cache"] == (cfg.n_layers, DECODE_B // data, cfg.n_kv_heads,
+                            S // model, cfg.resolved_head_dim)
+    assert got["cache_seq"] == S
+
+
+@pytest.mark.parametrize("arch", worker.DATA_ONLY_ARCHS)
+def test_data_mesh_serves_every_family(runs, arch):
+    """On 2x1 each rank decodes its row of the slots (its share of the
+    recurrent, SSM, conv and cross states): the one-process tokens."""
+    mesh_tokens, single_tokens = runs["serve"]["2x1"]["families"][arch]
+    assert mesh_tokens == single_tokens
+    assert len(single_tokens) == worker.SERVE_REQUESTS
+
+
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+def test_serve_driver_runs_on_the_mesh(runs, mesh):
+    assert runs["serve"][mesh]["driver"] == 0
+
+
+def test_serve_driver_refuses_a_multi_card_mesh_on_cuda(monkeypatch):
+    monkeypatch.setattr(port_serve, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    with pytest.raises(ValueError, match="one card"):
+        port_serve.main(["--reduced", "--mesh", "1x2"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "granite-moe-3b-a800m",
+                                  "zamba2-1.2b", "whisper-small",
+                                  "llama-3.2-vision-90b"])
+def test_serve_driver_refuses_other_families_on_a_model_axis(arch):
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--mesh", "1x2"])
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        get_adapter(reduced(ALL_ARCHS[arch])).init_decode_state(
+            2, 16, device="cpu", mesh=ModelAxis(2))
+
+
+def test_one_by_one_mesh_step_is_the_meshless_step(monkeypatch):
+    """On a 1x1 mesh the serve loop and the decode step are the meshless
+    ones: the same products and attention calls, no partial attention and
+    no collective, the same cache (plain tensors) and bit-equal logits and
+    tokens."""
+    calls = []
+    for mod, names in ((layers, ("rowstream_matmul", "flash_decode",
+                                 "flash_decode_partial", "all_gather",
+                                 "all_reduce_sum", "all_reduce_max")),
+                       (transformer, ("all_gather", "all_reduce_sum"))):
+        for name in names:
+            fn = getattr(mod, name)
+            monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k:
+                                calls.append(_n) or _fn(*a, **k))
+    _, cfg, p = dense_bridged("qwen2-7b")
+    params = bridge.to_torch(p, "cpu")
+    ad = get_adapter(cfg)
+    mesh = port_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
+    placed = port_serve.place_params(ad, params, mesh, 1)
+    assert all(a.data_ptr() == b.data_ptr() and a.shape == b.shape
+               for (_, a), (_, b) in zip(_leaves(placed), _leaves(params)))
+    runs_by = {}
+    for m, params in ((None, params), (mesh, placed)):
+        calls.clear()
+        cache = ad.init_decode_state(2, 16, device="cpu", mesh=m)
+        assert all(type(t) is torch.Tensor for t in cache.values())
+        tok = torch.tensor([[3], [5]], dtype=torch.int32)
+        logits = []
+        for pos in range(3):
+            lg, cache = ad.decode(params, {"tokens": tok}, cache, pos, m)
+            logits.append(lg)
+            tok = port_serve.greedy_sample(lg)[:, None]
+        run = port_serve.serve(cfg, params, port_serve.make_requests(
+            3, 16, 4, cfg.vocab, 0), 2, 16, "cpu", m)
+        runs_by[m is None] = (torch.stack(logits), list(calls),
+                              {r.rid: r.out_tokens
+                               for r in run.batcher.completed})
+    (l0, c0, t0), (l1, c1, t1) = runs_by[True], runs_by[False]
+    assert torch.equal(l0, l1) and c0 == c1 and t0 == t1
+    assert set(c0) == {"rowstream_matmul", "flash_decode"}
