@@ -58,10 +58,12 @@ GPU, from the root of a checkout:
      differ between the paths printed with their gate-probability gaps;
      then ``forward`` on 4 x 1024 tokens.
    * zamba2-1.2b (38 Mamba2 blocks, one shared attention + SwiGLU block
-     after every sixth) served as qwen2-7b: 119 rowstream_matmul launches
-     a step (in_proj and out_proj of each block, seven per application of
-     the shared block, the head) and 6 flash_decode (the shared block's
-     attention); the greedy tokens against the plain path's; each Mamba2
+     after every sixth; the full run cuts it to FULL_RUN_ZAMBA_LAYERS
+     blocks, a line says so, `--only zamba2` runs all 38) served as
+     qwen2-7b: 119 rowstream_matmul launches a step at full depth (in_proj
+     and out_proj of each block, seven per application of the shared
+     block, the head) and 6 flash_decode (the shared block's attention);
+     the greedy tokens against the plain path's; each Mamba2
      block and the shared block at each depth held against the plain path
      on the same input in bf16; ``forward`` on 4 x 1024 tokens (plain
      torch ops, the SSD recurrence token by token as in the reference);
@@ -101,6 +103,20 @@ GPU, from the root of a checkout:
      restore's seconds, each line with the card's name and power limit.
      Then one step's fp32 loss and grads at full width cut to 4 layers,
      kernel path against plain path, per leaf norm-wise.
+   * rwkv6-3b trained tensor-parallel: two ranks spawned on the one card
+     over gloo (a 1x2 mesh; NCCL puts no two ranks on one device), each
+     computing on its model shards through the driver's step (20 of the
+     40 heads a rank through rwkv_scan and rwkv_scan_bwd): one fp32 step
+     at full width cut to 4 layers against the single-process step (the
+     loss at 1e-5 relative, each gradient leaf norm-wise), and the same
+     for qwen2-7b cut to 2 layers (the dense family), then 3 bf16
+     steps at full width and depth, the launch counters set to 0 just
+     before each step and read just after (the 1x1 step's counts on each
+     rank), the heads of every scan launch, the parameter bytes each
+     forward saw, peak memory and step time. The recorded 20-head
+     launches are held against the plain versions and timed, and the
+     ranks' launches joined along the heads (the single-process launches
+     of the same layers) timed beside them.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -152,6 +168,9 @@ launches of one training microbatch on synthesised inputs. ``--only
 train`` builds and checks rwkv_scan, forward and backward, then runs only
 the training phases, profiled split and backward timings included (no
 ``ok`` line), its checkpoint check at full depth (30.7 GB a save).
+``--only train_tp`` builds rwkv_scan and rwkv_scan_bwd and runs only the
+tensor-parallel training phase and its kernel checks and timings (no
+``ok`` line).
 ``--only mesh`` builds flash_decode and rowstream_matmul, checks both
 (the partial entry and its merges included), serves qwen2-7b without a
 mesh and on a 1x1 mesh, then runs the two ranks on the card (no ``ok``
@@ -282,7 +301,7 @@ PLAIN_BWD_GROUP = 4
 # this many of a training microbatch's 32 launches: the plain backward's
 # 4480 kernels a launch take about 3 s of profiling each. `--only train`
 # and `--only rwkv_scan` time all 32.
-FULL_RUN_BWD_LAUNCHES = 8
+FULL_RUN_BWD_LAUNCHES = 4
 # `--only` choices that build and check every kernel, then run a model's
 # phases.
 MODEL_ONLY = (None, "zamba2", "whisper", "mllama")
@@ -294,6 +313,11 @@ MLLAMA = "llama-3.2-vision-90b"
 # 80 GB card: it runs at full width with its depth cut to this many pattern
 # units of 4 self-attention layers and 1 cross-attention layer.
 MLLAMA_UNITS = 2
+# The full run cuts zamba2-1.2b to this many Mamba2 blocks (two
+# applications of its shared block): its profiled forward, whose SSD scan
+# runs token by token (as the reference's), took 250 s of a 1000 s run at
+# all 38 on the H100. `--only zamba2` runs all 38.
+FULL_RUN_ZAMBA_LAYERS = 12
 # Stub inputs of the cross-attention families: frames and vision
 # embeddings N(0, 1) from SEED + 14.
 CROSS_SEED = SEED + 14
@@ -336,6 +360,18 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeFailure(msg)
+
+
+class Laps:
+    """Seconds of each phase of the full run, printed as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[run] {phase}: {now - self.t:.1f} s", flush=True)
+        self.t = now
 
 
 def card_line() -> str:
@@ -2747,8 +2783,9 @@ def print_breakdown(name: str, bd: dict, median_ms: float,
           f"the median step {1 - bd['device_ms'] / median_ms!r}")
 
 
-def zamba2_phase(torch) -> dict:
-    """zamba2-1.2b in bf16, everything timed on the host clock or with
+def zamba2_phase(torch, layers: int | None = None) -> dict:
+    """zamba2-1.2b in bf16 (its depth cut to `layers` Mamba2 blocks where
+    given, at full width), everything timed on the host clock or with
     CUDA events: its bounds; served with the driver's defaults (the
     launch counters set to 0 just before and read just after: 119
     rowstream_matmul and 6 flash_decode launches a step), the same
@@ -2758,6 +2795,12 @@ def zamba2_phase(torch) -> dict:
     path and decode against forward; then the paged pool."""
     from repro_torch.configs.registry_configs import ALL_ARCHS
     cfg = ALL_ARCHS[ZAMBA]
+    if layers is not None:
+        print(f"[depth] {ZAMBA}: {cfg.n_layers} Mamba2 blocks cut to "
+              f"{layers} at full width (d_model {cfg.d_model}; the shared "
+              f"block after every {cfg.shared_attn_every}th); the full depth "
+              f"runs with --only zamba2")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = init_params(torch, cfg)
     z = {"cfg": cfg, "bound": cell_bounds(cfg, params)}
     sv = z["serve"] = serve_phase(torch, cfg, params, per_step(cfg))
@@ -3426,13 +3469,391 @@ def mesh_phases(torch, cfg, params, sv: dict, prompts) -> tuple:
     return one, mesh_reference(torch, cfg, params, prompts)
 
 
+# The tensor-parallel training check (``--only train_tp``, and in the full
+# run): TP_RANKS ranks spawned on the one card over gloo (NCCL puts no two
+# ranks on one device; the collectives stage CUDA tensors through the
+# host), a 1xTP_RANKS mesh on which each rank computes on its model
+# shards. First one fp32 step of rwkv6-3b at full width cut to
+# TRAIN_CHECK_LAYERS layers, and of qwen2-7b cut to TP_DENSE_LAYERS,
+# against the single-process step on the card: the loss within
+# TP_LOSS_RTOL relative (the loss tolerance of tests/test_torch_train.py)
+# and each gradient leaf within TRAIN_GRAD_TOL norm-wise (the rule of the
+# single-process fp32 step check, train_fp32_check). The CPU tests'
+# gradient rule, max |diff| within TP_REPORTED_GRAD_TOL of the leaf's
+# largest, is printed but not held: at full width fp32 rounding alone
+# moves some leaves by more (rwkv6-3b: up to 1.3e-4 here, and 1.4e-4
+# between the single-process step's kernel and plain paths;
+# scripts/train_tp_diagnostics.py), while a fault of the split (a sum
+# missed or made twice, a wrong slice) is off by O(1). Then rwkv6-3b in
+# bf16 at full width and depth for TP_STEPS steps of the driver's
+# defaults: finite losses, the 1x1 step's launch counts on every rank and
+# step, each on TP_RANKS-th of the heads (20 of 40). Each rank keeps the
+# inputs of its first TP_RECORDED rwkv_scan and rwkv_scan_bwd launches:
+# rank 0's are held against the plain versions and timed, and both ranks'
+# joined along the heads give the single-process launches, timed beside
+# them.
+TP_RANKS = 2
+TP_STEPS = 3
+# The dense family's fp32 check beside rwkv6-3b's: qwen2-7b at full width
+# cut to this many layers (its 28 query and 4 KV heads, d_ff and padded
+# vocab all split over 2).
+TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen2-7b", 2
+TP_LOSS_RTOL = 1e-5
+TP_REPORTED_GRAD_TOL = 1e-4
+TP_RECORDED = 4
+TP_TIMEOUT_S = 600
+
+
+def _tp_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of the tensor-parallel training check (a spawned process):
+    a gloo group through a FileStore, the run, its results saved for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = tp_rank_run(torch, rank)
+        torch.save(out, Path(tmp) / f"tp_out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def train_cfg():
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    return ALL_ARCHS[TRAIN_ARCH]
+
+
+def _tp_batch(torch, cfg, step: int) -> dict:
+    from repro_torch.data.pipeline import make_pipeline
+    return {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(
+        cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED).batch_at(step).items()}
+
+
+def tp_fp32_check(torch, mesh, cfg) -> dict:
+    """`cfg` (fp32, full width, its depth cut), parameters from SEED: the
+    first step's loss and fp32 mean gradient on this rank's model shards
+    (the driver's loss, remat on) against the single-process step this
+    rank computes on the whole parameters. Per
+    leaf, over this rank's part of it: the largest |difference| and the
+    whole leaf's largest |gradient|, and the sums of squares of the
+    difference and of the single-process gradient (the caller adds them
+    over the ranks where the leaf is split)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.train.optimizer import _leaves
+    from repro_torch.train.train_step import accumulate
+    ad = get_adapter(cfg)
+    params = ad.init(torch.Generator(device="cuda").manual_seed(SEED),
+                     tp=TP_RANKS)
+    batch = _tp_batch(torch, cfg, 0)
+
+    def loss_fn(p, b, mesh=None):
+        return ad.loss(p, b, remat=True, mesh=mesh)
+
+    loss_ref, grads_ref = accumulate(loss_fn, params, batch, TRAIN_MICRO)
+    specs = ad.param_specs("data", TP_RANKS)
+    placed = sharding.constrain_like(params, specs, mesh)
+    del params
+    check(ad.supports_train_tp(TP_RANKS),
+          f"{cfg.name} does not compute on model shards on 1x{TP_RANKS}")
+    loss, grads = accumulate(loss_fn, placed, batch, TRAIN_MICRO,
+                             shards=True)
+    leaves = {}
+    for (path, g), (_, ref), (_, p) in zip(_leaves(grads),
+                                          _leaves(grads_ref),
+                                          _leaves(placed)):
+        want = sharding.local_shard(ref, mesh, p.placements)
+        diff = sharding.local(g) - want
+        leaves["/".join(path)] = (
+            diff.abs().max().item(), ref.abs().max().item(),
+            diff.square().sum().item(), want.square().sum().item(),
+            any(isinstance(q, sharding.Shard) for q in p.placements))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "loss": float(loss),
+            "single_loss": float(loss_ref), "leaves": leaves}
+
+
+def tp_fp32_cfgs() -> list:
+    """The configs of the fp32 checks: rwkv6-3b cut to TRAIN_CHECK_LAYERS
+    layers, qwen2-7b to TP_DENSE_LAYERS."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    return [dataclasses.replace(ALL_ARCHS[name], dtype="float32",
+                                n_layers=layers)
+            for name, layers in ((TRAIN_ARCH, TRAIN_CHECK_LAYERS),
+                                 (TP_DENSE_ARCH, TP_DENSE_LAYERS))]
+
+
+def tp_fp32_verdict(parts: list) -> dict:
+    """Check and print one fp32 check from the ranks' :func:`tp_fp32_check`
+    parts: the losses equal over the ranks and within TP_LOSS_RTOL of the
+    single-process loss; each leaf's ||diff|| over ||gradient|| (a split
+    leaf's sums added over the ranks, a replicated leaf's from rank 0)
+    within TRAIN_GRAD_TOL; max |diff| over the leaf's largest |gradient|
+    reported."""
+    f = parts[0]
+    errs = {}
+    for path, first in f["leaves"].items():
+        rows = [p["leaves"][path] for p in parts] if first[4] else [first]
+        errs[path] = (max(r[0] for r in rows) / first[1],
+                      math.sqrt(sum(r[2] for r in rows)
+                                / sum(r[3] for r in rows)))
+    loss_err = abs(f["loss"] - f["single_loss"]) / abs(f["single_loss"])
+    worst_max = max(errs, key=lambda k: errs[k][0])
+    worst_norm = max(errs, key=lambda k: errs[k][1])
+    out = {"arch": f["arch"], "layers": f["layers"], "loss": f["loss"],
+           "single_loss": f["single_loss"], "loss_rel_err": loss_err,
+           "worst_norm_err": errs[worst_norm][1],
+           "worst_norm_leaf": worst_norm,
+           "worst_max_err": errs[worst_max][0], "worst_max_leaf": worst_max,
+           "max_over_reported_tol": sorted(
+               k for k, e in errs.items() if e[0] > TP_REPORTED_GRAD_TOL)}
+    check(all(p["loss"] == f["loss"] for p in parts)
+          and loss_err <= TP_LOSS_RTOL
+          and all(e[1] <= TRAIN_GRAD_TOL for e in errs.values()),
+          f"{f['arch']} fp32 step on 1x{TP_RANKS} against the single-"
+          f"process step: losses {[p['loss'] for p in parts]} against "
+          f"{f['single_loss']}; per leaf (max, norm-wise) errors {errs}")
+    print(f"[depth] {f['arch']} tensor-parallel fp32 check: cut to "
+          f"{f['layers']} layers at full width")
+    print(f"[train_tp] {f['arch']} on 1x{TP_RANKS}, fp32 at {f['layers']} "
+          f"layers, the first step on model shards against the single-"
+          f"process step: loss {out['loss']!r} against "
+          f"{out['single_loss']!r} (rel err {loss_err!r}, tolerance "
+          f"{TP_LOSS_RTOL}); largest per-leaf ||grad - single|| / "
+          f"||single|| {out['worst_norm_err']!r} ({worst_norm}, tolerance "
+          f"{TRAIN_GRAD_TOL}); reported only: largest max |grad - single| "
+          f"/ max |single| {out['worst_max_err']!r} ({worst_max}); leaves "
+          f"past {TP_REPORTED_GRAD_TOL} by that measure: "
+          f"{out['max_over_reported_tol']}")
+    return out
+
+
+def tp_rank_run(torch, rank: int) -> dict:
+    """This rank's part of the tensor-parallel training check (see
+    TP_RANKS): the fp32 checks (:func:`tp_fp32_cfgs`), then TP_STEPS
+    bf16 steps of the driver's step on a 1xTP_RANKS mesh, the launch
+    counters set to 0 just before each step and read just after, the head
+    count of every rwkv_scan and rwkv_scan_bwd launch recorded, and the
+    inputs of the first TP_RECORDED of each kept (on the host)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.kernels.rwkv_scan import kernel
+    from repro_torch.launch import train as port_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_adapter, train_tp_path
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    out = {"fp32": []}
+    for cfg in tp_fp32_cfgs():
+        out["fp32"].append(tp_fp32_check(torch, mesh, cfg))
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_cfg()
+    ad = get_adapter(cfg)
+    out["path"] = train_tp_path(cfg, TP_RANKS)
+    step = port_train.make_step(ad, mesh, TP_RANKS, TRAIN_MICRO, TRAIN_LR)
+    seen = []
+    loss = ad.loss
+
+    def seen_loss(params, batch, remat=False, mesh=None):
+        seen.append(sum(t.numel() * t.element_size()
+                        for t in _tensors(params)))
+        return loss(params, batch, remat, mesh)
+
+    ad.loss = seen_loss
+    heads = {"rwkv_scan": [], "rwkv_scan_bwd": []}
+    kept = {"rwkv_scan": [], "rwkv_scan_bwd": []}
+    fns = {"rwkv_scan": kernel.rwkv_scan,
+           "rwkv_scan_bwd": kernel.rwkv_scan_bwd}
+
+    def recording(name):
+        def fn(*args):
+            heads[name].append(args[0].shape[2])
+            if len(kept[name]) < TP_RECORDED:
+                # the forward's r, k, v, w, u (not its chunk); the
+                # backward's r, k, v, w, u, do, dS (None: no final-state
+                # gradient in training)
+                kept[name].append(tuple(
+                    a.cpu() if a is not None else None
+                    for a in args[:5 if name == "rwkv_scan" else 7]))
+            return fns[name](*args)
+        return fn
+
+    kernel.rwkv_scan = recording("rwkv_scan")
+    kernel.rwkv_scan_bwd = recording("rwkv_scan_bwd")
+    counts, losses, step_ms = [], [], []
+    try:
+        with use_mesh(mesh):
+            state = port_train.init_state(ad, mesh, TP_RANKS, SEED, "cuda")
+            whole = sum(p.numel() * p.element_size()
+                        for p in _tensors(state.params))
+            for i in range(TP_STEPS):
+                batch = _tp_batch(torch, cfg, i)
+                torch.cuda.synchronize()
+                reset_launch_counters()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append({n: c.count
+                               for n, c in launch_counters().items()})
+    finally:
+        kernel.rwkv_scan = fns["rwkv_scan"]
+        kernel.rwkv_scan_bwd = fns["rwkv_scan_bwd"]
+        ad.loss = loss
+    out.update(losses=losses, step_ms=step_ms, counts=counts, heads=heads,
+               kept=kept, seen_bytes=seen, whole_bytes=whole,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def train_tp_phase(torch) -> dict:
+    """Spawn TP_RANKS ranks on the card (:func:`_tp_rank`), wait for them
+    within TP_TIMEOUT_S, and check what they return: each fp32 step
+    against the single-process one (:func:`tp_fp32_verdict`); the bf16
+    steps' finite losses, equal on every rank, at the 1x1 step's launches
+    on TP_RANKS-th of the heads."""
+    import torch.multiprocessing as mp
+    cfg = train_cfg()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_tp_rank, args=(
+            TP_RANKS, str(tmp / "store"), str(tmp)), nprocs=TP_RANKS,
+            start_method="spawn", join=False)
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                    proc.join()
+                raise SmokeFailure(f"the {TP_RANKS} training ranks ran past "
+                                   f"{TP_TIMEOUT_S} s and were killed")
+        seconds = time.perf_counter() - t0
+        outs = [torch.load(tmp / f"tp_out_{r}.pt", weights_only=False)
+                for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    H = cfg.d_model // 64
+    per_step = train_counts(cfg.n_layers)
+    fp32 = [tp_fp32_verdict([o["fp32"][i] for o in outs])
+            for i in range(len(outs[0]["fp32"]))]
+    for r, o in enumerate(outs):
+        check(o["path"][0], f"rank {r}: {o['path'][1]}")
+        check(all(math.isfinite(x) for x in o["losses"])
+              and o["losses"] == outs[0]["losses"],
+              f"rank {r}: bf16 losses {o['losses']} (rank 0: "
+              f"{outs[0]['losses']})")
+        check(all(c == per_step for c in o["counts"]),
+              f"rank {r}: launches by step {o['counts']}, expected "
+              f"{per_step} a step")
+        check(all(set(h) == {H // TP_RANKS} for h in o["heads"].values()),
+              f"rank {r}: heads of the scan launches "
+              f"{ {n: sorted(set(h)) for n, h in o['heads'].items()} }")
+    res = {"seconds": seconds, "ranks": TP_RANKS, "layers": cfg.n_layers,
+           "heads_per_rank": H // TP_RANKS, "path": outs[0]["path"][1],
+           "losses": outs[0]["losses"], "fp32": fp32,
+           "counts": [o["counts"] for o in outs],
+           "per_step": per_step,
+           "step_ms": [o["step_ms"] for o in outs],
+           "seen_bytes": [o["seen_bytes"][0] for o in outs],
+           "whole_bytes": outs[0]["whole_bytes"],
+           "peak_bytes": [o["peak_bytes"] for o in outs],
+           "kept": [o["kept"] for o in outs]}
+    print(f"[train_tp] {res['path']}")
+    for r in range(TP_RANKS):
+        print(f"[train_tp] rank {r}: bf16 full width and depth, "
+              f"{TP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+              f"{TRAIN_MICRO} microbatches: losses {res['losses']!r}; "
+              f"launches a step {res['counts'][r][0]} on "
+              f"{res['heads_per_rank']} of {H} heads each; parameter bytes "
+              f"the forward saw {res['seen_bytes'][r]} of "
+              f"{res['whole_bytes']}; peak memory {res['peak_bytes'][r]} "
+              f"bytes; step ms {res['step_ms'][r]!r} (two ranks sharing "
+              f"one card over host-staged gloo: a correctness run, not a "
+              f"speed)")
+    print(f"[train_tp] {seconds:.1f} s from spawn to join")
+    return res
+
+
+def train_tp_kernels(torch, res: dict) -> dict:
+    """The recorded rwkv_scan and rwkv_scan_bwd launches of the
+    tensor-parallel run (taken out of `res`): rank 0's (20 heads) held
+    against the plain versions by check_rwkv_scan's and
+    check_rwkv_scan_bwd's rules and timed (kernel, wall, plain, bound);
+    the ranks' launches joined along the heads (40, the single-process
+    launches of the same layers) timed beside them, kernel only."""
+    from repro_torch.kernels.rwkv_scan import kernel
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_bwd_ref
+    kept = res.pop("kept")
+    dev = [{n: [tuple(a.cuda() if a is not None else None for a in x)
+                for x in ls] for n, ls in k.items()} for k in kept]
+    fwd, bwd = dev[0]["rwkv_scan"], dev[0]["rwkv_scan_bwd"]
+    worst = {"rwkv_scan": 0.0, "rwkv_scan_bwd": 0.0}
+    for x in fwd:
+        o, S = kernel.rwkv_scan(*x)
+        torch.cuda.synchronize()
+        dt = "bfloat16" if x[0].dtype == torch.bfloat16 else "float32"
+        ok, err_o, err_s = scan_verdict(torch, x, o, S, "model", dt)
+        check(ok, f"rwkv_scan at {tuple(x[0].shape)} {dt} (a rank's "
+                  f"heads): max err o {err_o}, S {err_s}")
+        worst["rwkv_scan"] = max(worst["rwkv_scan"], err_o, err_s)
+    for x in bwd:
+        got = kernel.rwkv_scan_bwd(*x)
+        torch.cuda.synchronize()
+        dt = "bfloat16" if x[0].dtype == torch.bfloat16 else "float32"
+        ok, errs = scan_bwd_verdict(torch, x[:5], got,
+                                    rwkv_scan_bwd_ref(*x), "model", dt)
+        check(ok, f"rwkv_scan_bwd at {tuple(x[0].shape)} {dt} (a rank's "
+                  f"heads): max err dr dk dv dw du {errs}")
+        worst["rwkv_scan_bwd"] = max(worst["rwkv_scan_bwd"], *errs)
+    print(f"[kernels] rwkv_scan and rwkv_scan_bwd on a rank's "
+          f"{fwd[0][0].shape[2]} heads: {len(fwd)} and {len(bwd)} recorded "
+          f"launches of the 1x{TP_RANKS} run agree with the plain versions "
+          f"(check_rwkv_scan's and check_rwkv_scan_bwd's rules); max abs "
+          f"err {worst}")
+
+    def joined(name):
+        out = []
+        for parts in zip(*(d[name] for d in dev)):
+            out.append(tuple(
+                None if parts[0][i] is None else torch.cat(
+                    [p[i] for p in parts], 0 if parts[0][i].dim() == 2
+                    else 2).contiguous()
+                for i in range(len(parts[0]))))
+        return out
+
+    per = (f"{{}} of the recorded launches of one microbatch of the "
+           f"1x{TP_RANKS} run at b {TRAIN_BATCH // TRAIN_MICRO} x s "
+           f"{TRAIN_SEQ}, {{}} heads")
+    H = fwd[0][0].shape[2]
+    works = {"rwkv_scan on a rank's heads": scan_work(torch, fwd),
+             "rwkv_scan_bwd on a rank's heads": scan_bwd_work(torch, bwd),
+             "rwkv_scan on all heads": scan_work(torch, joined("rwkv_scan")),
+             "rwkv_scan_bwd on all heads": scan_bwd_work(
+                 torch, joined("rwkv_scan_bwd"))}
+    for name, w in works.items():
+        w["per"] = per.format(len(fwd) if "bwd" not in name else len(bwd),
+                              H if "rank" in name else H * TP_RANKS)
+        if "all heads" in name:
+            w["plain"] = None
+            w.pop("plain_one", None)
+    time_works(works)
+    return {"max_abs_err": worst,
+            "works": {n: numbers(w) for n, w in works.items()}}
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
-                                       "mllama", "train", "mesh"],
+                                       "mllama", "train", "train_tp",
+                                       "mesh"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -3466,7 +3887,7 @@ def main(argv=None) -> int:
     has_bwd = (build.CSRC / "rwkv_scan_bwd.cu").exists()
     if args.only in MODEL_ONLY:
         names = build.KERNELS
-    elif args.only in ("rwkv_scan", "train") and has_bwd:
+    elif args.only in ("rwkv_scan", "train", "train_tp") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
     elif args.only == "mesh":
         names = ("flash_decode", "rowstream_matmul")
@@ -3520,6 +3941,13 @@ def main(argv=None) -> int:
         print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
+    if args.only == "train_tp":
+        tp = train_tp_phase(torch)
+        tp["kernels"] = train_tp_kernels(torch, tp)
+        print(json.dumps({"train_tp": tp}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
+        print(card)
+        return 0
     errs = {"flash_decode": check_flash_decode(torch, dev)}
     partial = check_flash_partial(torch, dev)
     if args.only == "flash_decode":
@@ -3567,6 +3995,7 @@ def main(argv=None) -> int:
     # Everything timed on the host clock or with CUDA events comes before
     # the first use of the profiler: its hooks stay behind and slow later
     # launches from the host.
+    lap = Laps()
     qcfg = ALL_ARCHS["qwen2-7b"]
     params = init_params(torch, qcfg)
     cell_bounds(qcfg, params)
@@ -3591,7 +4020,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     qd32 = dense_fp32_phase(torch, qcfg, qf["tokens"])
     print_decode("qwen2-7b fp32 (fp32 cache)", qd32)
+    lap("qwen2-7b serve, 1x1 mesh, forward, fp32 decode")
     mesh_two = two_rank_phase(torch, mesh_ref, sv)
+    lap("qwen2-7b on 1x2")
 
     gcfg = ALL_ARCHS[GRANITE]
     params = init_params(torch, gcfg)
@@ -3615,12 +4046,20 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    z = zamba2_phase(torch)
-    cross = {name: cross_phase(torch, name) for name in (WHISPER, MLLAMA)}
+    lap("granite-moe-3b")
+    z = zamba2_phase(torch, FULL_RUN_ZAMBA_LAYERS)
+    lap("zamba2-1.2b and the paged pool")
+    cross = {}
+    for name in (WHISPER, MLLAMA):
+        cross[name] = cross_phase(torch, name)
+        lap(name)
     t0 = time.perf_counter()
     train = train_phase(torch, FULL_RUN_BWD_LAUNCHES, TRAIN_CHECK_LAYERS)
     print_train(train)
     print_ckpt(train["ckpt"], card)
+    lap("rwkv6-3b training on 1x1")
+    train_tp = train_tp_phase(torch)
+    lap("rwkv6-3b training on 1x2")
     train_s = time.perf_counter() - t0
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
@@ -3665,13 +4104,16 @@ def main(argv=None) -> int:
     print_breakdown("rwkv6-3b", rbd, rs["median_step_ms"])
     works = {name: numbers(w) for name, w in works.items()}
     del params, pf["tokens"]
+    lap("rwkv6-3b forward, serve and their profiled parts")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_prof = train_profiled(torch, train)
     works["rwkv_scan_bwd"] = train_prof["rwkv_scan_bwd"]
     check_rwkv_scan_bwd_launches(torch, dev)
+    train_tp["kernels"] = train_tp_kernels(torch, train_tp)
     train_s += time.perf_counter() - t0
     print(f"[run] the training phases took {train_s:.0f} s")
+    lap("training profiled, 1x2 kernels timed")
 
     # qwen2-7b and granite again, from the same seed, for their profiled
     # parts.
@@ -3713,11 +4155,15 @@ def main(argv=None) -> int:
     del params, gbound
     torch.cuda.empty_cache()
 
+    lap("qwen2-7b and granite-moe-3b profiled")
     zworks, zproducts = zamba2_profiled(torch, z)
+    lap("zamba2-1.2b profiled")
     works.update(zworks)
     cross_prof = {name: cross_profiled(torch, c) for name, c in cross.items()}
+    lap("whisper-small and llama-3.2-vision profiled")
     long_fd = flash_phase(FD_LENGTHS[1:])
     check_rowstream_launches(torch, dev)
+    lap("flash_decode at long context, rowstream_matmul launches")
 
     paths = {"qwen2-7b serve": sv["counts"],
              "qwen2-7b serve on a 1x1 mesh": mesh_one["mesh_1x1"]["counts"],
@@ -3735,6 +4181,9 @@ def main(argv=None) -> int:
              "llama-3.2-vision forward": cross[MLLAMA]["forward"]["counts"],
              "rwkv6-3b train": train["counts"],
              "rwkv6-3b resumed train": train["ckpt"]["counts"]}
+    for r, steps in enumerate(train_tp["counts"]):
+        paths[f"rwkv6-3b train on 1x{TP_RANKS}, rank {r}"] = {
+            n: sum(c[n] for c in steps) for n in steps[0]}
     # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
     # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
@@ -3764,6 +4213,10 @@ def main(argv=None) -> int:
             for m, cp in cross_prof.items():
                 entry[f"on_{m}_step"] = cp["works"][f"{name} on {m}"]
                 entry[f"{m}_products"] = cp["products"]
+        if name in ("rwkv_scan", "rwkv_scan_bwd"):
+            entry["train_tp"] = {
+                k: w for k, w in train_tp["kernels"]["works"].items()
+                if k.split(" on ")[0] == name}
         if name == "rwkv_scan_bwd":
             entry["gradient_of"] = "rwkv_scan"
             entry["train"] = {k: v for k, v in train.items()

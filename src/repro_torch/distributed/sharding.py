@@ -17,13 +17,18 @@ split by them in mesh order, as the reference's major-to-minor order.
 
 The active mesh is the one installed by :func:`use_mesh` (the reference's
 ``set_mesh``); :func:`shard_hint` and :func:`constrain_like` are the
-identity without one. The port computes on whole tensors: its train step
-gathers each parameter before the forward (``train/train_step.py``), so a
-hint on a plain tensor is the identity too, and a DTensor is
-redistributed to the hint. The serving step instead computes on each
-rank's local shards and calls the collectives at the end of this file
-(:func:`all_gather`, :func:`all_reduce_sum`, :func:`all_reduce_max`) on
-plain tensors.
+identity without one. The model code computes on plain tensors: a hint
+on a plain tensor is the identity too, and a DTensor is redistributed to
+the hint. The train step gathers each parameter before the forward
+(``train/train_step.py``): whole (:func:`gather`), or, where the family
+computes on ``model`` shards, over the batch axes only
+(:func:`gather_batch`). The serving step computes on each rank's local
+shards and calls the decode collectives (:func:`all_gather`,
+:func:`all_reduce_sum`, :func:`all_reduce_max`), which carry no gradient;
+the training forward on shards calls the autograd collectives
+(:func:`copy_to_model`, :func:`reduce_from_model`,
+:func:`gather_from_model`, :func:`slice_for_model`), whose backward is
+each one's adjoint.
 """
 from __future__ import annotations
 
@@ -329,33 +334,82 @@ def batch_rows(batch: int, mesh) -> tuple[int, int]:
 
 
 def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The sum of `x` over the ranks of the mesh axes `axes` (all-reduce),
-    `x` itself where they hold one rank."""
-    places = [Replicate()] * mesh.ndim
-    for m in _dims(mesh, axes):
-        if mesh.shape[m] > 1:
-            places[m] = Partial()
-    if all(isinstance(p, Replicate) for p in places):
-        return x
-    return DTensor.from_local(x, mesh, places, run_check=False).full_tensor()
+    """The sum of `x` over the ranks of the mesh axes `axes` (an
+    all-reduce over each axis's group in turn, in x's dtype), `x` itself
+    where they hold one rank. Under gloo a CUDA `x` is staged through the
+    host, as the decode collectives do."""
+    for axis in axes:
+        group = _group(mesh, axis)
+        if group is None:
+            continue
+
+        def reduce(t, group=group):
+            dist.all_reduce(t, group=group)
+            return t
+
+        x = _run(reduce, x, group)
+    return x
+
+
+def model_local_shape(ref: torch.Tensor) -> tuple:
+    """The shape of a DTensor `ref` with only its ``model`` placements
+    applied: what :func:`gather_batch` gives, and the shape of the
+    gradient that a forward on ``model`` shards takes of it."""
+    mesh = ref.device_mesh
+    shape = list(ref.shape)
+    for m in _dims(mesh, (TP_AXIS,)):
+        p = ref.placements[m]
+        if isinstance(p, Shard):
+            shape[p.dim] //= mesh.shape[m]
+    return tuple(shape)
 
 
 def reduce_into(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """The local shard, placed like the DTensor `ref`, of the sum of `g`
     over the batch axes: each rank's `g` is the whole gradient of its own
-    rows. A reduce-scatter where a dim of `ref` is split over a batch
-    axis, an all-reduce where it is not; a plain slice on the other axes
-    (their ranks hold the same rows); no communication where the batch
-    axes hold one rank."""
+    rows. `g` is either the whole leaf's gradient (the step gathered the
+    leaf whole) or already this rank's ``model`` shard of it, of
+    :func:`model_local_shape` (the step computed on ``model`` shards);
+    other shapes raise. A reduce-scatter where a dim of `ref` is split
+    over a batch axis, an all-reduce where it is not; a whole `g` is
+    sliced on the other axes (their ranks hold the same rows), a shard is
+    not sliced again; no communication where the batch axes hold one
+    rank."""
     mesh = ref.device_mesh
     src = [Replicate()] * mesh.ndim
     for m in _dims(mesh, BATCH_AXES):
         if mesh.shape[m] > 1:
             src[m] = Partial()
-    if all(isinstance(p, Replicate) for p in src):
-        return local_shard(g, mesh, ref.placements)
+    whole = tuple(g.shape) == tuple(ref.shape)
+    if not whole:
+        if tuple(g.shape) != model_local_shape(ref):
+            raise ValueError(f"reduce_into: a gradient of shape "
+                             f"{tuple(g.shape)} for a {tuple(ref.shape)} "
+                             f"leaf placed {ref.placements}: neither the "
+                             f"leaf's shape nor its model shard's "
+                             f"{model_local_shape(ref)}")
+        for m in _dims(mesh, (TP_AXIS,)):
+            src[m] = ref.placements[m]
+    if not any(isinstance(p, Partial) for p in src):
+        return local_shard(g, mesh, ref.placements) if whole else g
     return DTensor.from_local(g.float(), mesh, src, run_check=False) \
         .redistribute(mesh, ref.placements).to_local()
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """This rank's ``model`` shard of `x` whole over the batch axes: a
+    DTensor split over ``pod`` or ``data`` is gathered there (its other
+    placements kept) and its local tensor returned, which is its own
+    storage where no batch axis splits it; a plain tensor as is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    batch = _dims(mesh, BATCH_AXES)
+    places = tuple(Replicate() if m in batch else p
+                   for m, p in enumerate(x.placements))
+    if places != tuple(x.placements):
+        x = x.redistribute(mesh, places)
+    return x.to_local()
 
 
 def counted_once(x: torch.Tensor) -> bool:
@@ -454,6 +508,144 @@ def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         return t
 
     return _run(reduce, x, group)
+
+
+# --- autograd collectives of the training forward on model shards ----------
+# Megatron's column- and row-parallel pair, over the ``model`` axis, on
+# plain local tensors: each the identity, with no op and no copy, where
+# there is no mesh, the axis is absent or it holds one rank. Under gloo a
+# CUDA tensor is staged through the host (``_run``). Each backward is the
+# adjoint of its forward, where a tensor every rank holds alike
+# (replicated) counts once and one that differs between the ranks
+# (partial terms, or shards) counts as the sum over the ranks:
+#
+#   copy_to_model      replicated -> per rank   back: all-reduce sum
+#   reduce_from_model  partial    -> replicated back: identity
+#   gather_from_model  shards     -> replicated back: this rank's slice
+#   slice_for_model    replicated -> shards     back: all-gather
+#
+# gather_from_model's backward is a slice, not a reduce-scatter: each of
+# its callers (the head's logits) feeds the gathered tensor to work that
+# every rank on ``model`` does alike (the same loss from the same rows),
+# so each rank's incoming gradient is already the whole one. A
+# reduce-scatter would count it once per rank.
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group` of the ranks' `x`, taken in fp32 or wider
+    (a bf16 `x` is rounded once, at the end), in x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+
+    def reduce(t):
+        t = t.to(acc)
+        dist.all_reduce(t, group=group)
+        return t
+
+    return _run(reduce, x, group).to(x.dtype)
+
+
+def _cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' `x` of `group` concatenated along `dim` in rank order."""
+    def gather(t):
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    return _run(gather, x, group)
+
+
+def _slice(x: torch.Tensor, rank: int, n: int, dim: int) -> torch.Tensor:
+    """Part `rank` of `n` equal contiguous parts of `x` along `dim`."""
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {tuple(x.shape)} tensor does not "
+                         f"split over {n} ranks of mesh axis {TP_AXIS!r}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank * size, size).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, n, dim):
+        ctx.args = (rank, n, dim)
+        return _cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_slice(g, *ctx.args),) + (None,) * 4
+
+
+class _SliceForModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, n, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(x, rank, n, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_cat(g, ctx.group, ctx.dim),) + (None,) * 4
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Forward `x` itself; backward the all-reduce sum of the gradient over
+    ``model``. At the input of each group of column-parallel products
+    (and on a replicated leaf that each rank applies to its own part of
+    the work), where each rank's gradient holds only its columns'
+    terms."""
+    group = _group(mesh, TP_AXIS)
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Forward the all-reduce sum over ``model`` (in fp32, as
+    :func:`all_reduce_sum`); backward the identity. After each row-parallel
+    product and the vocab-parallel embedding lookup."""
+    group = _group(mesh, TP_AXIS)
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Forward the ranks' `x` concatenated along `dim` over ``model``;
+    backward this rank's slice of the gradient (see the note above)."""
+    group = _group(mesh, TP_AXIS)
+    if group is None:
+        return x
+    return _GatherFromModel.apply(x, group, model_rank(mesh),
+                                  model_size(mesh), dim % x.dim())
+
+
+def slice_for_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """Forward this rank's contiguous part of a replicated `x` along `dim`
+    (``model`` splits it in equal parts); backward the all-gather of the
+    parts' gradients, so every rank gets the whole one. For replicated
+    leaves that act per head or per channel on activations split over
+    ``model``."""
+    group = _group(mesh, TP_AXIS)
+    if group is None:
+        return x
+    return _SliceForModel.apply(x, group, model_rank(mesh),
+                                model_size(mesh), dim % x.dim())
 
 
 # ---------------------------------------------------------------------------

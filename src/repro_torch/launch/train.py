@@ -20,8 +20,12 @@ heads padded to a multiple of TP (the mesh's last dim).
 ``--mesh DATAxMODEL`` (default 1x1) lays the state out on a named-axis
 mesh: parameters and AdamW moments as DTensors under the family's
 ``param_specs`` with ZeRO over ``data`` (``fsdp="data"``) and
-tensor-parallel storage over ``model``, each step gathering them whole
-(``train/train_step.py``). As in the reference, ``--mesh 4`` gives the
+tensor-parallel storage over ``model`` (``train/train_step.py``). On a
+``model`` axis of several ranks the dense family and rwkv6 compute on
+each rank's shards, their gathers over ``data`` only; the other families,
+and shapes the axis does not divide, gather every parameter whole. Rank 0
+prints which (``[train] ...`` from ``models.registry.train_tp_path``).
+As in the reference, ``--mesh 4`` gives the
 axes ``("data",)`` with TP 4. The mesh covers the process group
 (``launch/mesh.py``): a 2x2 mesh runs on 4 ranks, each running this
 driver with the whole global batch. On ``cuda`` a mesh holds one card:
@@ -54,8 +58,9 @@ from ..configs.base import ArchConfig, reduced
 from ..configs.registry_configs import ALL_ARCHS
 from ..data.pipeline import make_pipeline
 from ..distributed import checkpoint as ckpt
-from ..distributed.sharding import constrain_like, local_tree, use_mesh
-from ..models.registry import get_adapter
+from ..distributed.sharding import (constrain_like, local_tree, model_size,
+                                    use_mesh)
+from ..models.registry import get_adapter, train_tp_path
 from ..train.train_step import TrainState, make_train_step, train_state_init
 from .mesh import driver_mesh, make_mesh, parse_mesh, process_group_scope
 
@@ -79,13 +84,28 @@ def build(arch, use_reduced: bool, microbatches: int, lr: float,
     dev = resolve_device(device)
     axes, tp = driver_mesh(mesh_shape, dev)
     mesh = make_mesh(mesh_shape, axes, dev)
-
-    def loss_fn(params, batch):
-        return adapter.loss(params, batch, remat=True)
-
-    step = make_train_step(loss_fn, microbatches=microbatches, lr=lr,
-                           param_specs=adapter.param_specs("data", tp))
+    step = make_step(adapter, mesh, tp, microbatches, lr)
     return cfg, adapter, mesh, step, tp
+
+
+def make_step(adapter, mesh, tp: int, microbatches: int, lr: float):
+    """The driver's train step for `adapter` on `mesh` (parameters from
+    ``init(tp)``): the loss recomputes each layer in the backward and
+    takes the mesh where the family computes on ``model`` shards
+    (``train_tp_path``), and the state stays under
+    ``param_specs(fsdp="data", tp)``. On a ``model`` axis of several ranks
+    rank 0 prints the path taken."""
+    model = model_size(mesh)
+    shards, why = train_tp_path(adapter.cfg, model)
+    if model > 1 and _first_rank():
+        print(f"[train] {why}", flush=True)
+
+    def loss_fn(params, batch, mesh=None):
+        return adapter.loss(params, batch, remat=True, mesh=mesh)
+
+    return make_train_step(loss_fn, microbatches=microbatches, lr=lr,
+                           param_specs=adapter.param_specs("data", tp),
+                           shards=shards)
 
 
 def init_state(adapter, mesh, tp: int, seed: int, device) -> TrainState:

@@ -20,7 +20,10 @@ each rank projects with its shards of the weights (its own heads, its
 columns of the SwiGLU), the heads are gathered, each rank attends over its
 slots of a KV cache split by sequence (``cached_attention_update``), and
 the row-parallel products are summed over the ranks
-(``distributed/sharding.py``'s collectives).
+(``distributed/sharding.py``'s collectives). The training forward on such
+a mesh (``self_attention`` with ``mesh``) runs each rank's query heads
+only, through the autograd collectives, so its gradients are each rank's
+shards (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import (TP_AXIS, all_gather, all_reduce_max,
-                                    all_reduce_sum, model_rank, model_size)
+                                    all_reduce_sum, copy_to_model,
+                                    model_rank, model_size,
+                                    reduce_from_model)
 from ..kernels.flash_decode.ops import flash_decode, flash_decode_partial
 from ..kernels.rowstream_matmul.ops import rowstream_matmul
 
@@ -213,16 +218,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def self_attention(params: dict, x: torch.Tensor, cfg,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, mesh=None) -> torch.Tensor:
     """Full-sequence causal GQA self-attention (prefill path), products
     through torch.matmul. Long sequences use the chunked online-softmax
     path (same math, bounded memory). The reference's optional mask, which
-    no caller passes, is left out."""
+    no caller passes, is left out.
+
+    With a `mesh` whose ``model`` axis holds n > 1 ranks (the training
+    forward on shards), `params` are this rank's shards: wq and bq its
+    query heads' columns, wo their rows, wk/wv/bk/bv its KV heads' where
+    they split over n (``transformer.attn_specs``), else whole. `x` enters
+    through ``copy_to_model``, the rank attends with its own query heads
+    (against its KV heads, or, where every rank holds every KV head, the
+    ones its heads' groups use), and its product with wo is summed over
+    the ranks (``reduce_from_model``). Replicated leaves that act on this
+    rank's heads only (q_norm, k_norm, and wk/wv/bk/bv where they are
+    whole) enter through ``copy_to_model`` too, so that their gradients
+    are summed over the ranks."""
     b, s, _ = x.shape
     mm = torch.matmul
+    n = model_size(mesh)
+    if n > 1:
+        x = copy_to_model(x, mesh)
+        params = _partial_grad_leaves(params, cfg, mesh)
     q, k, v = gqa_project(params, x, cfg, mm)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    if n > 1 and k.shape[1] == cfg.n_kv_heads:
+        k, v = kv_groups(k, v, q.shape[1], n, model_rank(mesh))
     n_rep = q.shape[1] // k.shape[1]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     if s >= CHUNKED_ATTN_THRESHOLD:
@@ -231,7 +254,31 @@ def self_attention(params: dict, x: torch.Tensor, cfg,
         out = attention_scores(q, k, v, causal_mask(s, s, cfg.sliding_window,
                                                     x.device))
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return mm(out, params["wo"])
+    out = mm(out, params["wo"])
+    return reduce_from_model(out, mesh) if n > 1 else out
+
+
+def _partial_grad_leaves(params: dict, cfg, mesh) -> dict:
+    """The attention leaves with ``copy_to_model`` on those that every
+    rank holds whole but applies to its own heads only: q_norm, k_norm,
+    and wk, wv, bk, bv where the KV heads do not split."""
+    out = dict(params)
+    names = ["q_norm", "k_norm"] if cfg.qk_norm else []
+    if params["wk"].shape[1] == cfg.n_kv_heads * cfg.resolved_head_dim:
+        names += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias else [])
+    for name in names:
+        out[name] = copy_to_model(params[name], mesh)
+    return out
+
+
+def kv_groups(k: torch.Tensor, v: torch.Tensor, nq: int, n: int,
+              rank: int) -> tuple:
+    """k, v (b, h_kv, s, hd) of every KV head -> those that query heads
+    rank * nq .. (rank + 1) * nq - 1 of nq * n use, one per query head
+    (``repeat_kv``'s head j of the whole is KV head j // n_rep)."""
+    n_rep = nq * n // k.shape[1]
+    idx = torch.arange(rank * nq, (rank + 1) * nq, device=k.device) // n_rep
+    return k[:, idx], v[:, idx]
 
 
 def cross_attention(params: dict, x: torch.Tensor, kv_input: torch.Tensor,

@@ -31,8 +31,14 @@ and ``decode`` take a ``mesh`` (default none: the meshless step): each
 rank decodes its rows of the batch, and the dense family also decodes on
 a ``model`` axis of several ranks, tensor- and context-parallel
 (``models/transformer.py``); the other families raise there
-(:func:`check_decode_mesh`). The reference's ``input_structs`` and
-``supports`` wait for the launch-tooling slice.
+(:func:`check_decode_mesh`). ``forward`` and ``loss`` take a ``mesh``
+too (default none): where the ``model`` axis holds several ranks, the
+dense and SSM families compute on each rank's shards of the parameters
+(the training forward on shards, ``models/transformer.py``,
+``models/rwkv6.py``); :func:`train_tp_path` says which families and
+shapes do, and the train step gathers the others' parameters whole. The
+reference's ``input_structs`` and ``supports`` wait for the
+launch-tooling slice.
 """
 from __future__ import annotations
 
@@ -62,8 +68,8 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(lse - picked)
 
 
-def _tfm_forward(params, cfg, batch, remat):
-    return transformer.forward(params, cfg, batch["tokens"], remat)
+def _tfm_forward(params, cfg, batch, remat, mesh=None):
+    return transformer.forward(params, cfg, batch["tokens"], remat, mesh)
 
 
 def _tfm_decode(params, cfg, batch, state, pos, mesh=None):
@@ -82,8 +88,32 @@ def check_decode_mesh(cfg, model: int) -> None:
             f"zamba2, whisper and mllama families)")
 
 
-def _rwkv_forward(params, cfg, batch, remat):
-    return rwkv6.forward(params, cfg, batch["tokens"], remat)
+def _rwkv_forward(params, cfg, batch, remat, mesh=None):
+    return rwkv6.forward(params, cfg, batch["tokens"], remat, mesh)
+
+
+def train_tp_path(cfg, model: int) -> tuple[bool, str]:
+    """(whether `cfg` computes on the shards of a ``model`` axis of
+    `model` ranks, a sentence that says so): the dense family (its MoE
+    sibling not yet) and rwkv6 where the axis divides their shapes
+    (``transformer.train_tp_refusal``, ``rwkv6.train_tp_refusal``). Every
+    other case trains with each parameter gathered whole on every rank;
+    on a ``model`` axis of one rank that is the single-process step."""
+    if model <= 1:
+        return False, (f"{cfg.name}: a model axis of one rank; each rank "
+                       f"computes the whole model")
+    if cfg.family in ("dense", "moe"):
+        refusal = transformer.train_tp_refusal(cfg, model)
+    elif cfg.family == "ssm":
+        refusal = rwkv6.train_tp_refusal(cfg, model)
+    else:
+        refusal = (f"{cfg.name}: the {cfg.family} family does not compute "
+                   f"on model shards in training yet (ROADMAP Queue 1)")
+    if refusal is not None:
+        return False, (f"{refusal}; each rank gathers every parameter "
+                       f"whole and computes the whole model")
+    return True, (f"{cfg.name}: each rank computes on its shards of a "
+                  f"model axis of {model} ranks")
 
 
 def _rwkv_decode(params, cfg, batch, state, pos):
@@ -169,18 +199,35 @@ class ModelAdapter:
         axis of ZeRO-3 parameter sharding (None: replicated over data)."""
         return self._fns["param_specs"](self.cfg, fsdp, tp)
 
-    def forward(self, params: dict, batch: dict,
-                remat: bool = False) -> torch.Tensor:
+    def forward(self, params: dict, batch: dict, remat: bool = False,
+                mesh=None) -> torch.Tensor:
         """Logits (b, s, V_padded) of a whole sequence (train / prefill);
-        with `remat` each layer is recomputed in the backward."""
-        return self._fns["forward"](params, self.cfg, batch, remat)
+        with `remat` each layer is recomputed in the backward. With a
+        `mesh` whose ``model`` axis holds several ranks, `params` are this
+        rank's shards and the logits are whole on every rank, for the
+        families and shapes :func:`train_tp_path` names; the others raise
+        there.
+        Without a mesh, or on a ``model`` axis of one rank, the
+        single-process forward."""
+        if mesh is None or model_size(mesh) == 1:
+            return self._fns["forward"](params, self.cfg, batch, remat)
+        ok, why = train_tp_path(self.cfg, model_size(mesh))
+        if not ok:
+            raise NotImplementedError(why)
+        return self._fns["forward"](params, self.cfg, batch, remat, mesh)
 
-    def loss(self, params: dict, batch: dict,
-             remat: bool = False) -> torch.Tensor:
+    def supports_train_tp(self, model: int) -> bool:
+        """Whether this family and shape compute on model shards in
+        training on a ``model`` axis of `model` ranks
+        (:func:`train_tp_path`)."""
+        return train_tp_path(self.cfg, model)[0]
+
+    def loss(self, params: dict, batch: dict, remat: bool = False,
+             mesh=None) -> torch.Tensor:
         """Mean next-token cross entropy of ``forward``'s logits against
         batch["labels"], padded vocab entries masked."""
-        return _xent(self.forward(params, batch, remat), batch["labels"],
-                     self.cfg.vocab)
+        return _xent(self.forward(params, batch, remat, mesh),
+                     batch["labels"], self.cfg.vocab)
 
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype=torch.bfloat16, device="cuda",

@@ -23,16 +23,41 @@ runs in two forms:
 
 Parameters are a dict of tensors with the reference's structure, the
 per-layer ``blocks`` leaves stacked along a leading layer dim.
+
+``forward`` with a ``mesh`` whose ``model`` axis holds n > 1 ranks (the
+training forward on shards) runs on each rank's shards under
+``param_specs``, where n divides the H heads (:func:`check_train_shards`):
+r, k, v, g and the decay on its H / n heads' columns, ``rwkv_scan`` on
+those heads, wo and cv by rows, each summed over the ranks
+(``reduce_from_model``), ck by columns, a vocab-parallel embedding and
+the head's columns gathered over ``model``. How each replicated leaf's
+gradient comes out whole on every rank:
+
+* ``copy_to_model`` at the input of each group of column-parallel
+  products, whose backward sums the ranks' partial gradients: the mixed
+  xr, xk, xv, xg of the time mix, the LoRA's hidden ``tanh(xw @
+  w_lora_a)`` (the input of the column-parallel w_lora_b), the channel
+  mix's xk, and the normed h before the head. Behind them ``mu``,
+  ``mu_c``, ``w_lora_a``, ``tm_norm``, ``cm_norm`` and ``final_norm`` act
+  on replicated activations only, so each rank's gradient is already the
+  whole one and is not summed again.
+* ``slice_for_model`` on the leaves that act per head or per channel on
+  the rank's heads: ``u`` (H, hd) by heads, ``w0`` and ``ln_x`` (d,) by
+  channels; their backward gathers the parts' gradients.
+* ``cr`` (replicated) acts on the replicated channel-mix input and its
+  product is computed whole on every rank: no collective.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import padded_vocab
+from ..distributed.sharding import (copy_to_model, gather_from_model,
+                                    model_size, padded_vocab,
+                                    reduce_from_model, slice_for_model)
 from ..kernels.rwkv_scan.ops import rwkv_scan
 from .layers import dense_init, matmul, rmsnorm
-from .transformer import (_dtype, _index, _layers, _stack, _stacked,
+from .transformer import (_dtype, _embed, _index, _layers, _stack, _stacked,
                           remat_call)
 
 LORA_RANK = 64
@@ -117,11 +142,16 @@ def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
 # `mm` is the product: layers.matmul (the row-stream kernel) at decode,
 # torch.matmul over all rows of a prompt.
 
-def _decay(bp: dict, xw: torch.Tensor, mm=matmul) -> torch.Tensor:
+def _decay(bp: dict, xw: torch.Tensor, mm=matmul,
+           mesh=None) -> torch.Tensor:
     """Data-dependent per-channel decay in (0, 1): w = exp(-exp(w0 +
-    lora)), the LoRA in the model dtype, the rest in fp32."""
-    lora = mm(torch.tanh(mm(xw, bp["w_lora_a"])), bp["w_lora_b"])
-    return torch.exp(-torch.exp(bp["w0"] + lora.float()))
+    lora)), the LoRA in the model dtype, the rest in fp32. On a
+    tensor-parallel `mesh`, w_lora_b holds this rank's columns and the
+    decay is its channels' (w0 sliced to them)."""
+    hidden = copy_to_model(torch.tanh(mm(xw, bp["w_lora_a"])), mesh)
+    lora = mm(hidden, bp["w_lora_b"])
+    return torch.exp(-torch.exp(slice_for_model(bp["w0"], mesh, 0)
+                                + lora.float()))
 
 
 def _group_norm(o: torch.Tensor, ln_x: torch.Tensor,
@@ -154,12 +184,15 @@ def _time_mix_step(bp: dict, cfg, x: torch.Tensor, x_prev: torch.Tensor,
 
 
 def _channel_mix_step(bp: dict, x: torch.Tensor, x_prev: torch.Tensor,
-                      mm=matmul) -> torch.Tensor:
-    """Channel mix of x (..., d) against its shifted x_prev."""
+                      mm=matmul, mesh=None) -> torch.Tensor:
+    """Channel mix of x (..., d) against its shifted x_prev; on a
+    tensor-parallel `mesh` ck by columns, cv by rows summed over the
+    ranks, cr whole."""
     mix = x[..., None, :] + (x_prev - x)[..., None, :] * bp["mu_c"]
     xk, xr = mix.unbind(-2)
-    k = torch.square(torch.relu(mm(xk, bp["ck"])))
-    return mm(k, bp["cv"]) * torch.sigmoid(mm(xr, bp["cr"]))
+    k = torch.square(torch.relu(mm(copy_to_model(xk, mesh), bp["ck"])))
+    return reduce_from_model(mm(k, bp["cv"]), mesh) \
+        * torch.sigmoid(mm(xr, bp["cr"]))
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
@@ -167,31 +200,34 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x[:, :-1], (0, 0, 1, 0))
 
 
-def _time_mix_seq(bp: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+def _time_mix_seq(bp: dict, cfg, x: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """Time mixing of a whole normed sequence x (b, s, d) from a zero
     state: the mixes and projections over all b * s rows, the recurrence
-    in one ``rwkv_scan`` call."""
-    H, hd = n_heads(cfg), HEAD_DIM
+    in one ``rwkv_scan`` call; on a tensor-parallel `mesh` on this rank's
+    H / n heads."""
+    H, hd = n_heads(cfg) // model_size(mesh), HEAD_DIM
     b, s, d = x.shape
     mm = torch.matmul
     mix = x[:, :, None, :] + (_shift(x) - x)[:, :, None, :] * bp["mu"]
     xr, xk, xv, xg, xw = mix.unbind(2)
+    xr, xk, xv, xg = (copy_to_model(t, mesh) for t in (xr, xk, xv, xg))
     r = mm(xr, bp["wr"]).reshape(b, s, H, hd).float()
     k = mm(xk, bp["wk"]).reshape(b, s, H, hd).float()
     v = mm(xv, bp["wv"]).reshape(b, s, H, hd).float()
     g = F.silu(mm(xg, bp["wg"]))
-    w = _decay(bp, xw, mm).reshape(b, s, H, hd)
-    o, _ = rwkv_scan(r, k, v, w, bp["u"])
-    o = _group_norm(o, bp["ln_x"], x.dtype)
-    return mm(o * g, bp["wo"])
+    w = _decay(bp, xw, mm, mesh).reshape(b, s, H, hd)
+    o, _ = rwkv_scan(r, k, v, w, slice_for_model(bp["u"], mesh, 0))
+    o = _group_norm(o, slice_for_model(bp["ln_x"], mesh, 0), x.dtype)
+    return reduce_from_model(mm(o * g, bp["wo"]), mesh)
 
 
-def _layer_seq(bp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+def _layer_seq(bp: dict, cfg, h: torch.Tensor, mesh=None) -> torch.Tensor:
     """Full-sequence layer. h: (b, s, d)."""
     hn = rmsnorm(h, bp["tm_norm"], cfg.norm_eps)
-    h = h + _time_mix_seq(bp, cfg, hn)
+    h = h + _time_mix_seq(bp, cfg, hn, mesh)
     hn = rmsnorm(h, bp["cm_norm"], cfg.norm_eps)
-    return h + _channel_mix_step(bp, hn, _shift(hn), torch.matmul)
+    return h + _channel_mix_step(bp, hn, _shift(hn), torch.matmul, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -199,15 +235,61 @@ def _layer_seq(bp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def forward(params: dict, cfg, tokens: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, mesh=None) -> torch.Tensor:
     """tokens: (b, s) int. Returns logits (b, s, V_padded). With `remat`
     each layer is recomputed in the backward (the reference's
-    jax.checkpoint of its layer)."""
-    h = params["embed"][tokens]
+    jax.checkpoint of its layer). With a `mesh` whose ``model`` axis holds
+    n > 1 ranks, `params` are this rank's shards (see the module
+    docstring); the logits are gathered whole on every rank. On a
+    ``model`` axis of one rank, or without a mesh, this is the
+    single-process forward."""
+    n = model_size(mesh)
+    tp = mesh if n > 1 else None
+    if tp is not None:
+        check_train_shards(params, cfg, n)
+    h = _embed(params["embed"], tokens, cfg, tp)
     for bp in _layers(params["blocks"]):
-        h = remat_call(remat, _layer_seq, bp, cfg, h)
+        h = remat_call(remat, _layer_seq, bp, cfg, h, tp)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"])
+    logits = torch.matmul(copy_to_model(h, tp), params["lm_head"])
+    return gather_from_model(logits, tp, -1)
+
+
+def train_tp_refusal(cfg, n: int) -> str | None:
+    """Why `cfg` cannot compute on the shards of a ``model`` axis of n
+    ranks, or None where it can: n must divide the heads (so each rank
+    scans whole heads), d_ff and the padded vocab."""
+    V = padded_vocab(cfg.vocab)
+    for what, size in (("heads", n_heads(cfg)), ("d_ff", cfg.d_ff),
+                       ("padded vocab", V)):
+        if size % n:
+            return (f"{cfg.name}: its {what} ({size} at d_model "
+                    f"{cfg.d_model}) do not split over {n} ranks of the "
+                    f"model axis")
+    return None
+
+
+def check_train_shards(params: dict, cfg, n: int) -> None:
+    """Raise unless `params` hold this rank's 1/n of every leaf the
+    training forward on a ``model`` axis of n ranks splits; where `cfg`
+    cannot compute on shards (:func:`train_tp_refusal`), raise that."""
+    refusal = train_tp_refusal(cfg, n)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    d, V = cfg.d_model, padded_vocab(cfg.vocab)
+    blocks = params["blocks"]
+    got = {"wr": blocks["wr"].shape[-1], "wo": blocks["wo"].shape[-2],
+           "w_lora_b": blocks["w_lora_b"].shape[-1],
+           "ck": blocks["ck"].shape[-1], "cv": blocks["cv"].shape[-2],
+           "embed": params["embed"].shape[0],
+           "lm_head": params["lm_head"].shape[-1]}
+    want = {"wr": d // n, "wo": d // n, "w_lora_b": d // n,
+            "ck": cfg.d_ff // n, "cv": cfg.d_ff // n, "embed": V // n,
+            "lm_head": V // n}
+    if got != want:
+        raise ValueError(f"{cfg.name}: split leaves hold {got} on this "
+                         f"rank; a model axis of {n} ranks needs {want} "
+                         f"(parameters placed by param_specs)")
 
 
 def init_state(cfg, batch: int, device="cuda") -> dict:

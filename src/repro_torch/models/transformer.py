@@ -15,7 +15,12 @@ several ranks, the dense step is tensor-parallel on each rank's shards of
 the parameters (``param_specs``: the embedding's vocab rows, the head's
 columns, the attention and SwiGLU products' columns or rows) and
 context-parallel on its slots of the KV cache (``cache_specs``), as the
-reference's partitioning computes it.
+reference's partitioning computes it. ``forward`` with ``mesh`` (the
+dense family's training forward on a ``model`` axis of several ranks)
+computes on the same shards, through the autograd collectives of
+``distributed/sharding.py``: a vocab-parallel embedding, each rank's
+query heads, its columns of w_gate and w_up and rows of w_down, and its
+columns of the head, the logits gathered over ``model``.
 """
 from __future__ import annotations
 
@@ -25,9 +30,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed.sharding import (BATCH_AXES, TP_AXIS, all_gather,
                                     all_reduce_sum, batch_rows,
-                                    constrain_entries, local,
+                                    constrain_entries, copy_to_model,
+                                    gather_from_model, local,
                                     mesh_axis_sizes, model_rank, model_size,
-                                    padded_heads, padded_vocab, placements)
+                                    padded_heads, padded_vocab, placements,
+                                    reduce_from_model)
 from . import moe as moe_lib
 from .layers import (attn_params, decode_attention, dense_init, ffn_params,
                      matmul, rmsnorm, self_attention, swiglu)
@@ -135,30 +142,88 @@ def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
 # ---------------------------------------------------------------------------
 
 def _block_forward(cfg, h: torch.Tensor, bp: dict,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One block of ``forward``; with a tensor-parallel `mesh` (see
+    :func:`forward`) on this rank's shards of `bp`."""
     h = h + self_attention(bp["attn"], rmsnorm(h, bp["attn_norm"],
-                                               cfg.norm_eps), cfg, positions)
+                                               cfg.norm_eps), cfg, positions,
+                           mesh)
     x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
         f = moe_lib.moe_ffn(bp["moe"], x, cfg, mm=torch.matmul)
     else:
-        f = swiglu(bp["ffn"], x, torch.matmul)
+        f = reduce_from_model(swiglu(bp["ffn"], copy_to_model(x, mesh),
+                                     torch.matmul), mesh)
     return h + f
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, mesh=None) -> torch.Tensor:
     """tokens: (b, s) int -> logits (b, s, V_padded). With `remat` each
     block is recomputed in the backward (the reference's jax.checkpoint of
-    its block)."""
+    its block).
+
+    With a `mesh` whose ``model`` axis holds n > 1 ranks (the dense
+    family's training forward on shards), `params`
+    are this rank's shards under ``param_specs(tp=n)`` with the batch axes
+    gathered (``sharding.gather_batch``), the query heads padded by
+    ``init(tp=n)``, and every split one checked (:func:`check_train_shards`):
+    the embedding looks up its vocab rows (:func:`_embed`), each block runs
+    on its shards, and the head's columns give this rank's logits, gathered
+    over ``model`` (``gather_from_model``, whose backward is this rank's
+    slice: every rank computes the same loss from them). Each rank's
+    gradients are then its shards. On a ``model`` axis of one rank, or
+    without a mesh, this is the single-process forward."""
+    n = model_size(mesh)
+    tp = mesh if n > 1 else None
+    if tp is not None:
+        check_train_shards(params, cfg, n)
     b, s = tokens.shape
-    h = params["embed"][tokens]
+    h = _embed(params["embed"], tokens, cfg, tp)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     for bp in _layers(params["blocks"]):
-        h = remat_call(remat, _block_forward, cfg, h, bp, positions)
+        h = remat_call(remat, _block_forward, cfg, h, bp, positions, tp)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(h, params["lm_head"])
+    logits = torch.matmul(copy_to_model(h, tp), params["lm_head"])
+    return gather_from_model(logits, tp, -1)
+
+
+def train_tp_refusal(cfg, n: int) -> str | None:
+    """Why `cfg` cannot compute on the shards of a ``model`` axis of n
+    ranks, or None where it can: the MoE family cannot yet, and n must
+    divide d_ff and the padded vocab (``init(tp=n)`` pads the query heads;
+    KV heads that do not split are held whole on every rank)."""
+    if cfg.moe:
+        return (f"{cfg.name}: the MoE family's experts do not split over "
+                f"the model axis yet (ROADMAP Queue 1 item 4c)")
+    for what, size in (("d_ff", cfg.d_ff),
+                       ("padded vocab", padded_vocab(cfg.vocab))):
+        if size % n:
+            return (f"{cfg.name}: its {what} of {size} does not split over "
+                    f"{n} ranks of the model axis")
+    return None
+
+
+def check_train_shards(params: dict, cfg, n: int) -> None:
+    """Raise unless `params` hold this rank's shards of every leaf the
+    training forward on a ``model`` axis of n ranks splits: the query
+    heads (:func:`_check_tp_shards`), the columns of w_gate and of the
+    head and the embedding's vocab rows, 1/n of each; where `cfg` cannot
+    compute on shards (:func:`train_tp_refusal`), raise that."""
+    refusal = train_tp_refusal(cfg, n)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
+    _check_tp_shards(params, cfg, n)
+    V = padded_vocab(cfg.vocab)
+    got = {"ffn/w_gate": params["blocks"]["ffn"]["w_gate"].shape[-1],
+           "embed": params["embed"].shape[0],
+           "lm_head": params["lm_head"].shape[-1]}
+    want = {"ffn/w_gate": cfg.d_ff // n, "embed": V // n,
+            "lm_head": V // n}
+    if got != want:
+        raise ValueError(f"{cfg.name}: split leaves hold {got} on this "
+                         f"rank; a model axis of {n} ranks needs {want}")
 
 
 def remat_call(remat: bool, fn, *args):
@@ -291,16 +356,17 @@ def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
 
 def _embed(embed: torch.Tensor, token: torch.Tensor, cfg,
            mesh) -> torch.Tensor:
-    """The rows of `token` (b, 1): a lookup, or, where `embed` holds this
-    rank's rows of the vocab, the vocab-parallel lookup summed over
-    ``model``."""
+    """The rows of `token` (any shape of ints): a lookup, or, where `embed`
+    holds this rank's rows of the vocab, the vocab-parallel lookup summed
+    over ``model`` (``reduce_from_model``: one term is non-zero, so the sum
+    is exact, and each rank's gradient falls on its own rows)."""
     rows = embed.shape[0]
     if mesh is None or rows == padded_vocab(cfg.vocab):
         return embed[token]
     idx = token - model_rank(mesh) * rows
     inside = (idx >= 0) & (idx < rows)
     h = embed[idx.clamp(0, rows - 1)] * inside[..., None].to(embed.dtype)
-    return all_reduce_sum(h, mesh, TP_AXIS)
+    return reduce_from_model(h, mesh)
 
 
 def _check_tp_shards(params: dict, cfg, n: int) -> None:

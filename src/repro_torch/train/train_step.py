@@ -13,16 +13,31 @@ microbatches.
 On a mesh (``param_specs`` given and a mesh active,
 ``distributed.sharding.use_mesh``) the state lives as DTensors under the
 specs, filtered by ``constrain_like``'s rules: parameters, moments and
-the gradient accumulator alike. Each step gathers every parameter whole
-for the forward and backward, so the model and the kernels' wrappers see
-plain tensors and do the single-process step's math. The batch axes
-(``pod``, ``data``) split each microbatch's rows: every rank holds the
-whole global batch and takes its own rows. Each microbatch's gradient is
-reduced into the parameters' placements (a reduce-scatter over the batch
+the gradient accumulator alike. The batch axes (``pod``, ``data``) split
+each microbatch's rows: every rank holds the whole global batch and takes
+its own rows. How a step gathers the parameters for the forward and
+backward depends on the ``model`` axis:
+
+* With ``shards`` (the family computes on ``model`` shards,
+  ``models.registry.train_tp_path``) and a ``model`` axis of several
+  ranks, each parameter is gathered over the batch axes only
+  (``sharding.gather_batch``): the forward sees this rank's ``model``
+  shards, gets the mesh (``loss_fn(params, batch, mesh)``) and runs
+  tensor-parallel through the autograd collectives, and each gradient
+  comes out as this rank's shard, which is reduced over the batch axes
+  only.
+* Otherwise every parameter is gathered whole (``sharding.gather``) and
+  ``loss_fn(params, batch)`` does the single-process step's math on
+  plain tensors; each gradient is reduced over the batch axes and sliced
+  to the rank's ``model`` shard. On a ``model`` axis of one rank, or
+  with no mesh, this is the single-process step, call for call.
+
+Either way each microbatch's gradient is reduced into the parameters'
+placements (``sharding.reduce_into``: a reduce-scatter over the batch
 axes where a dim is split over them, an all-reduce where the leaf is
-replicated, a local slice over ``model``), then added to the
-accumulator. Where the batch axes hold one rank (a 1x1 mesh) there is no
-communication and every gather is the parameter's own storage.
+replicated), then added to the accumulator. Where the batch axes hold one
+rank (a 1x1 or 1xN mesh) there is no communication there, and every
+gather over them is the parameter's own storage.
 
 The step updates the state in place (see ``optimizer``) and returns it.
 """
@@ -34,8 +49,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..distributed.sharding import (BATCH_AXES, active_mesh, constrain_like,
-                                    data_rows, gather, like, reduce_into,
-                                    sum_over)
+                                    data_rows, gather, gather_batch, like,
+                                    model_size, reduce_into, sum_over)
 from .optimizer import (AdamWState, _leaves, _unflatten, adamw_init,
                         adamw_update)
 
@@ -57,12 +72,13 @@ def state_specs(param_specs: dict) -> TrainState:
                                               param_specs))
 
 
-def _grads(loss_fn: Callable, params: dict, batch: dict) -> tuple:
+def _grads(loss_fn: Callable, params: dict, batch: dict,
+           *mesh) -> tuple:
     """(loss, grads as a list in leaf order): the leaves are detached and
     set to require grad for the call, so the step leaves no graph on the
-    parameters."""
+    parameters. A `mesh` given is passed on to `loss_fn`."""
     inputs = [p.detach().requires_grad_(True) for _, p in _leaves(params)]
-    loss = loss_fn(_unflatten(params, inputs), batch)
+    loss = loss_fn(_unflatten(params, inputs), batch, *mesh)
     grads = torch.autograd.grad(loss, inputs)
     return loss.detach(), list(grads)
 
@@ -75,13 +91,16 @@ def _mesh_of(params: dict):
 
 
 def accumulate(loss_fn: Callable, params: dict, batch: dict,
-               microbatches: int = 1) -> tuple:
+               microbatches: int = 1, shards: bool = False) -> tuple:
     """(loss, grads): the step's loss, averaged over the microbatches, and
     its gradient tree. On plain parameters: with one microbatch the grads
     in the parameters' dtype, with more their fp32 mean. On DTensor
     parameters: each grad a DTensor placed like its parameter, the mean
     over the microbatches and the batch axes' ranks (fp32 where it was
-    reduced), and the loss averaged over those ranks too."""
+    reduced), and the loss averaged over those ranks too. With `shards`
+    and a ``model`` axis of several ranks, the forward computes on this
+    rank's ``model`` shards (``loss_fn(params, batch, mesh)``; see the
+    module docstring)."""
     if microbatches < 1:
         raise ValueError(f"microbatches {microbatches} < 1")
     b = next(iter(batch.values())).shape[0]
@@ -96,12 +115,16 @@ def accumulate(loss_fn: Callable, params: dict, batch: dict,
                          f"{ranks} ranks of the batch axes")
     per = rows // ranks
     refs = [p for _, p in _leaves(params)]
-    full = _unflatten(params, [gather(p) for p in refs])
+    on_shards = shards and model_size(mesh) > 1
+    full = _unflatten(params, [(gather_batch if on_shards else gather)(p)
+                               for p in refs])
+    extra = (mesh,) if on_shards else ()
     acc, loss_sum = None, None
     for i in range(microbatches):
         lo = i * rows + index * per
         loss, grads = _grads(loss_fn, full,
-                             {k: x[lo:lo + per] for k, x in batch.items()})
+                             {k: x[lo:lo + per] for k, x in batch.items()},
+                             *extra)
         if mesh is not None:
             grads = [reduce_into(g, p) for g, p in zip(grads, refs)]
         if acc is None:
@@ -126,10 +149,12 @@ def accumulate(loss_fn: Callable, params: dict, batch: dict,
 def make_train_step(loss_fn: Callable, *, microbatches: int = 1,
                     lr: float = 3e-4, weight_decay: float = 0.1,
                     grad_clip: float = 1.0,
-                    param_specs: dict | None = None) -> Callable:
-    """loss_fn(params, batch) -> scalar loss. Returns
-    step(state, batch) -> (state, metrics), metrics {"loss": 0-d fp32
-    tensor}.
+                    param_specs: dict | None = None,
+                    shards: bool = False) -> Callable:
+    """loss_fn(params, batch) -> scalar loss (with `shards`, also
+    loss_fn(params, batch, mesh) on a ``model`` axis of several ranks:
+    see :func:`accumulate`). Returns step(state, batch) -> (state,
+    metrics), metrics {"loss": 0-d fp32 tensor}.
 
     With microbatches > 1 the global batch (a dict of tensors) is split
     along axis 0 and the grads accumulated in fp32. With `param_specs`
@@ -144,7 +169,8 @@ def make_train_step(loss_fn: Callable, *, microbatches: int = 1,
     def step(state: TrainState, batch: dict) -> tuple:
         if specs is not None and active_mesh() is not None:
             state = constrain_like(state, specs)
-        loss, grads = accumulate(loss_fn, state.params, batch, microbatches)
+        loss, grads = accumulate(loss_fn, state.params, batch, microbatches,
+                                 shards)
         params, opt = adamw_update(state.params, grads, state.opt, lr=lr,
                                    weight_decay=weight_decay,
                                    grad_clip=grad_clip)

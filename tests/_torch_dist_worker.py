@@ -19,7 +19,7 @@ from repro_torch.distributed.elastic import elastic_resume
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.launch.mesh import make_mesh, parse_mesh
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv6
 from repro_torch.models.registry import get_adapter
 from repro_torch.train import optimizer
 from repro_torch.train.optimizer import _leaves, adamw_init, adamw_update
@@ -29,10 +29,17 @@ from repro_torch.train.train_step import (accumulate, state_specs,
 # The driver's runs: the reference driver's batch at a short sequence, 8
 # rows in 2 microbatches, each split over up to 2 data ranks.
 SEQ, BATCH, MICRO, STEPS = 16, 8, 2, 3
+# Training cases beside the reduced archs: (arch, overrides of reduced()).
+# rwkv6-3b at d_model 128 has 2 heads, which split over a model axis of 2
+# (at 64 it has 1, and the step gathers its parameters whole); qwen2-7b
+# with one KV head holds wk and wv whole on every rank of that axis.
+CASES = {"rwkv6-3b-d128": ("rwkv6-3b", {"d_model": 128}),
+         "qwen2-7b-kv1": ("qwen2-7b", {"n_kv_heads": 1})}
 
 
 def fp32_cfg(arch):
-    return reduced(ALL_ARCHS[arch], dtype="float32")
+    name, overrides = CASES.get(arch, (arch, {}))
+    return reduced(ALL_ARCHS[name], dtype="float32", **overrides)
 
 
 def _full_np(tree) -> dict:
@@ -50,15 +57,40 @@ def _split_leaves(leaves) -> int:
                for t in leaves if isinstance(t, sharding.DTensor))
 
 
-def meshes(inputs_path, mesh_texts, archs):
-    """For each mesh: each arch's first step (loss and the fp32 mean
-    gradient, gathered whole) from the bridged parameters placed as the
-    driver places them, the driver's mesh axes and TP, the number of
-    parameter leaves split over some mesh axis, and the driver's losses
-    over STEPS steps from its own seeded init."""
+def _seen(ad, mesh, record: dict):
+    """The driver's loss on `mesh` (the mesh passed where the family
+    computes on model shards), recording the shape of every parameter
+    leaf the forward sees and the head count of each rwkv_scan call."""
+    def loss_fn(params, batch, mesh=None):
+        record["shapes"] = {"/".join(p): tuple(t.shape)
+                            for p, t in _leaves(params)}
+        return ad.loss(params, batch, remat=True, mesh=mesh)
+    return loss_fn
+
+
+def _scan_heads(record: dict):
+    """rwkv6's rwkv_scan, recording each call's head count."""
+    scan = rwkv6.rwkv_scan
+
+    def counted(r, *args, **kwargs):
+        record.setdefault("scan_heads", []).append(r.shape[2])
+        return scan(r, *args, **kwargs)
+    return counted
+
+
+def meshes(inputs_path, plan):
+    """For each mesh of `plan` ({mesh text: archs}) and each of its archs:
+    the first step (loss and the fp32 mean gradient, gathered whole) from
+    the bridged parameters placed as the driver places them, through the
+    driver's loss (on model shards where the family computes on them);
+    the driver's mesh axes and TP, the number of parameter leaves split
+    over some mesh axis, whether the step computed on model shards, and
+    from every rank the shapes of the leaves its forward saw and the head
+    count of each rwkv_scan call; and the driver's losses over STEPS steps
+    from its own seeded init."""
     inputs = torch.load(inputs_path, weights_only=False)
     out = {}
-    for text in mesh_texts:
+    for text, archs in plan.items():
         res = out[text] = {}
         for arch in archs:
             _, ad, mesh, _, tp = port_train.build(
@@ -68,15 +100,83 @@ def meshes(inputs_path, mesh_texts, archs):
             placed = sharding.constrain_like(
                 params, ad.param_specs("data", tp), mesh)
             split = _split_leaves(t for _, t in _leaves(placed))
-            loss, grads = accumulate(
-                lambda p, b: ad.loss(p, b, remat=True), placed,
-                {k: torch.from_numpy(v) for k, v in batch.items()}, MICRO)
+            shards = ad.supports_train_tp(sharding.model_size(mesh))
+            record = {}
+            scan = rwkv6.rwkv_scan
+            rwkv6.rwkv_scan = _scan_heads(record)
+            try:
+                loss, grads = accumulate(
+                    _seen(ad, mesh, record), placed,
+                    {k: torch.from_numpy(v) for k, v in batch.items()},
+                    MICRO, shards)
+            finally:
+                rwkv6.rwkv_scan = scan
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, record)
             run = port_train.train(fp32_cfg(arch), steps=STEPS, seq_len=SEQ,
                                    global_batch=BATCH, microbatches=MICRO,
                                    device="cpu", mesh=text)
             res[arch] = {"loss": float(loss), "grads": _full_np(grads),
                          "split_leaves": split, "losses": run.losses,
-                         "axes": mesh.mesh_dim_names, "tp": tp}
+                         "axes": mesh.mesh_dim_names, "tp": tp,
+                         "shards": shards, "ranks": ranks}
+    return out
+
+
+def tp_collectives(seed):
+    """The four autograd collectives of sharding.py in fp64 on the mesh's
+    model axis: for each, f(x) and its backward f*(y) on this rank, where
+    x and y are the same on every rank when they are replicated and differ
+    when they are per-rank terms or shards; the inner products <f(x), y>
+    and <x, f*(y)>, each summed over the ranks where its space is
+    per-rank and taken once where it is replicated (so each side is the
+    same on every rank). Then, on a mesh whose model axis holds one rank
+    and with no mesh, whether each op returns its input itself."""
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"), "cpu")
+    rank = sharding.model_rank(mesh)
+    shared = torch.Generator().manual_seed(seed)
+    own = torch.Generator().manual_seed(seed + 1 + rank)
+    shape = (3, 4 * world, 5)
+
+    def draw(replicated, shape=shape):
+        return torch.randn(shape, generator=shared if replicated else own,
+                           dtype=torch.float64)
+
+    def inner(a, b, replicated):
+        v = torch.sum(a * b).reshape(1)
+        return v if replicated else sharding.sum_over(v, mesh, ("model",))
+
+    part = (3, 4, 5)
+    # op: (f, x replicated?, x shape, f(x) replicated?, y shape)
+    ops = {"copy_to_model": (lambda x: sharding.copy_to_model(x, mesh),
+                             True, shape, False, shape),
+           "reduce_from_model": (lambda x: sharding.reduce_from_model(
+               x, mesh), False, shape, True, shape),
+           "gather_from_model": (lambda x: sharding.gather_from_model(
+               x, mesh, 1), False, part, True, shape),
+           "slice_for_model": (lambda x: sharding.slice_for_model(
+               x, mesh, 1), True, shape, False, part)}
+    out = {}
+    for name, (f, x_rep, x_shape, y_rep, y_shape) in ops.items():
+        x = draw(x_rep, x_shape).requires_grad_(True)
+        y = draw(y_rep, y_shape)
+        fx = f(x)
+        (xbar,) = torch.autograd.grad(fx, x, y)
+        out[name] = (float(inner(fx.detach(), y, y_rep)),
+                     float(inner(x.detach(), xbar, x_rep)),
+                     tuple(fx.shape), tuple(xbar.shape))
+    one = make_mesh((world, 1), ("data", "model"), "cpu")
+    x = torch.ones(2, 4)
+    out["identity"] = {
+        name: all(f is x for f in (op(x, m) for m in (one, None)))
+        for name, op in (
+            ("copy_to_model", sharding.copy_to_model),
+            ("reduce_from_model", sharding.reduce_from_model),
+            ("gather_from_model",
+             lambda t, m: sharding.gather_from_model(t, m, 1)),
+            ("slice_for_model",
+             lambda t, m: sharding.slice_for_model(t, m, 1)))}
     return out
 
 
@@ -241,7 +341,7 @@ def cp_attention(inputs_path, mesh_texts):
 
 JOBS = {"meshes": meshes, "adamw_2x2": adamw_2x2, "save_2x2": save_2x2,
         "resume": resume, "serve_meshes": serve_meshes,
-        "cp_attention": cp_attention}
+        "cp_attention": cp_attention, "tp_collectives": tp_collectives}
 
 
 def _main(rank, world, store_path, out_path, jobs):

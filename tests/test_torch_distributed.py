@@ -25,7 +25,17 @@ single-process port and JAX's ``decode_step``; the serve loop on each
 mesh emits the reference driver's greedy tokens; each rank holds 1/model
 of every weight split over ``model`` and S/model cache slots; on 2x1 the
 other families serve their one-process tokens. A 1x1 mesh is the
-meshless step, call for call."""
+meshless step, call for call.
+
+Tensor-parallel training (``train/train_step.py`` with ``shards``, the
+autograd collectives of ``distributed/sharding.py``): in the same spawns,
+on 2x2 and 1x2, reduced qwen2-7b, qwen2-7b with one KV head and rwkv6-3b
+at d_model 128 compute on their model shards (rwkv6-3b at 64, one head,
+gathers whole); their first step and 3 driver steps are held against the
+single-process port and ``jax.value_and_grad``, and each rank's forward
+sees half of every leaf split over model and scans 1 of 2 heads. The
+four collectives are adjoint in fp64 on 2 ranks and the identity on a
+one-rank axis; a 1x1 train step is the meshless one bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +60,7 @@ from repro_torch.distributed import elastic, sharding
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, registry, transformer
 from repro_torch.models.registry import get_adapter
 from repro_torch.train.optimizer import _leaves
 from repro_torch.train.train_step import accumulate
@@ -64,6 +74,18 @@ from test_torch_train import _batch as parity_batch
 ARCHS = ["qwen2-7b", "rwkv6-3b"]
 MESHES_OF_2 = ["2x1", "1x2", "2"]
 MESHES = ["2x2"] + MESHES_OF_2
+# The tensor-parallel training cases (``_torch_dist_worker.CASES``), run on
+# the meshes with a model axis of 2: rwkv6-3b at d_model 128 (2 heads) and
+# qwen2-7b with one KV head (wk and wv whole on every rank).
+TP_CASES = list(worker.CASES)
+TP_MESHES = ["2x2", "1x2"]
+TRAIN_RUNS = [(a, m) for a in ARCHS for m in MESHES] \
+    + [(a, m) for a in TP_CASES for m in TP_MESHES]
+# Whether each arch's first step computes on model shards on a model axis
+# of 2: reduced rwkv6-3b at d_model 64 has one head, so its parameters are
+# gathered whole.
+ON_SHARDS = {"qwen2-7b": True, "rwkv6-3b": False, "rwkv6-3b-d128": True,
+             "qwen2-7b-kv1": True}
 # Serving: each arch with its cache's max_seq over DECODE_STEPS steps of
 # DECODE_B rows. qwen2-7b's 8 slots put shard 1 of 2 empty for 4 steps;
 # h2o-danube-1.8b's 4-slot ring buffer wraps after 4 (slot pos % 4 over
@@ -76,7 +98,20 @@ DECODE_TOL = 1e-5
 
 
 def _bridged(arch):
-    return rwkv_bridged(64) if arch == "rwkv6-3b" else dense_bridged(arch)
+    """(jax cfg, port cfg, numpy params) of a training case in fp32: the
+    reference's init bridged, biases, norms and rwkv6's mixes seeded."""
+    if arch == "rwkv6-3b":
+        return rwkv_bridged(64)
+    if arch == "rwkv6-3b-d128":
+        return rwkv_bridged(128)
+    if arch == "qwen2-7b-kv1":
+        jcfg = jax_reduced(JAX_ARCHS["qwen2-7b"], dtype="float32",
+                           n_kv_heads=1)
+        params = jax_tree_map(np.asarray, jax_get_adapter(jcfg).init(
+            jax.random.PRNGKey(0), tp=1))
+        return jcfg, worker.fp32_cfg(arch), _seed_biases_and_norms(
+            params, np.random.default_rng(0))
+    return dense_bridged(arch)
 
 
 def _opt_case(rng):
@@ -103,7 +138,7 @@ def runs(tmp_path_factory):
     spawns (the latter resumes what the former saved)."""
     tmp = tmp_path_factory.mktemp("dist")
     inputs, single = {}, {}
-    for arch in ARCHS:
+    for arch in ARCHS + TP_CASES:
         _, cfg, p = _bridged(arch)
         # The JAX parity tests' batch (tests/test_torch_train.py): 4 x 16
         # tokens, 2 microbatches of 2 rows, 1 row a data rank.
@@ -129,20 +164,25 @@ def runs(tmp_path_factory):
                 [bridge.to_torch(g, "cpu") for g in opt[2]]),
                tmp / "opt.pt")
     ck, witness = str(tmp / "ckpt"), str(tmp / "witness.pt")
+    def plan(texts):
+        return {t: [a for a, m in TRAIN_RUNS if m == t] for t in texts}
+
     four = worker.spawn(4, str(tmp), [
-        ("meshes", (str(tmp / "inputs.pt"), ["2x2"], ARCHS)),
+        ("meshes", (str(tmp / "inputs.pt"), plan(["2x2"]))),
         ("adamw_2x2", (str(tmp / "opt.pt"),)),
         ("save_2x2", (ck, witness)),
         ("serve_meshes", (str(tmp / "serve.pt"), ["2x2"]))])
     two = worker.spawn(2, str(tmp), [
-        ("meshes", (str(tmp / "inputs.pt"), MESHES_OF_2, ARCHS)),
+        ("meshes", (str(tmp / "inputs.pt"), plan(MESHES_OF_2))),
         ("resume", (ck, witness, 2)),
-        ("serve_meshes", (str(tmp / "serve.pt"), SERVE_MESHES_OF_2))])
+        ("serve_meshes", (str(tmp / "serve.pt"), SERVE_MESHES_OF_2)),
+        ("tp_collectives", (11,))])
     return {"single": single, "inputs": inputs, "opt": opt, "ckpt": ck,
             "witness": witness, "meshes": {**four["meshes"],
                                            **two["meshes"]},
             "adamw_2x2": four["adamw_2x2"], "save_2x2": four["save_2x2"],
             "resume_1x2": two["resume"], "serve_in": serve_in,
+            "tp_collectives": two["tp_collectives"],
             "serve_ref": serve_ref,
             "serve": {**four["serve_meshes"], **two["serve_meshes"]}}
 
@@ -230,16 +270,14 @@ def _close_leaves(got: dict, want: dict, tol=GRAD_TOL):
 
 # --- each mesh against the single-process step -------------------------------
 
-@pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,mesh", TRAIN_RUNS)
 def test_mesh_first_step_matches_single_process(runs, arch, mesh):
     got, want = runs["meshes"][mesh][arch], runs["single"][arch]
     assert got["loss"] == pytest.approx(want["loss"], rel=LOSS_TOL)
     _close_leaves(got["grads"], want["grads"])
 
 
-@pytest.mark.parametrize("mesh", MESHES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,mesh", TRAIN_RUNS)
 def test_mesh_losses_over_three_steps_match_single_process(runs, arch, mesh):
     got, want = runs["meshes"][mesh][arch], runs["single"][arch]
     assert len(got["losses"]) == worker.STEPS
@@ -259,23 +297,123 @@ def test_mesh_axes_tp_and_split_leaves(runs, mesh, axes, tp):
         assert got["split_leaves"] > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_2x2_step_matches_jax_value_and_grad(runs, arch):
-    """The 2x2 mesh's first step (2 microbatches of 2 rows, each split
-    over 2 data ranks) against jax.value_and_grad of the reference's loss
-    on the whole batch: the mean of equal microbatches' means."""
+def _jax_value_and_grad(runs, arch) -> tuple:
+    """(loss, {leaf path: grad}) of jax.value_and_grad of the reference's
+    loss with remat on the whole parity batch: the mean of equal
+    microbatches' means."""
     jcfg, _, p = _bridged(arch)
     jad = jax_get_adapter(jcfg)
     batch = jax_tree_map(jnp.asarray, runs["inputs"][arch][1])
     jloss, jgrads = jax.value_and_grad(
         lambda q: jad.loss(q, batch, remat=True))(
         jax_tree_map(jnp.asarray, p))
-    got = runs["meshes"]["2x2"][arch]
-    assert got["loss"] == pytest.approx(float(jloss), rel=LOSS_TOL)
     want = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
         want["/".join(k.key for k in path)] = np.asarray(leaf)
+    return float(jloss), want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_2x2_step_matches_jax_value_and_grad(runs, arch):
+    """The 2x2 mesh's first step (2 microbatches of 2 rows, each split
+    over 2 data ranks) against jax.value_and_grad of the reference's loss
+    on the whole batch: the mean of equal microbatches' means."""
+    jloss, want = _jax_value_and_grad(runs, arch)
+    got = runs["meshes"]["2x2"][arch]
+    assert got["loss"] == pytest.approx(jloss, rel=LOSS_TOL)
     _close_leaves(got["grads"], want)
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    (a, m) for a, m in TRAIN_RUNS if m in TP_MESHES
+    and (a in TP_CASES or m == "1x2")])
+def test_tp_step_matches_jax_value_and_grad(runs, arch, mesh):
+    """The first step on a model axis of 2 (each rank on its model shards
+    where the arch splits, ``ON_SHARDS``) against jax.value_and_grad, at
+    the training tolerances."""
+    jloss, want = _jax_value_and_grad(runs, arch)
+    got = runs["meshes"][mesh][arch]
+    assert got["shards"] == ON_SHARDS[arch]
+    assert got["loss"] == pytest.approx(jloss, rel=LOSS_TOL)
+    _close_leaves(got["grads"], want)
+
+
+def _model_split(arch, mesh) -> dict:
+    """{leaf path: whole shape} of the leaves whose spec splits them over
+    the model axis of `mesh` (by constrain_entries' rule)."""
+    data, model = port_mesh.parse_mesh(mesh)
+    cfg = worker.fp32_cfg(arch)
+    ad = get_adapter(cfg)
+    params = dict(_leaves(ad.init(torch.Generator().manual_seed(0),
+                                  tp=model)))
+    out = {}
+    for path, spec in _leaves(ad.param_specs("data", model)):
+        entries = sharding.constrain_entries(
+            spec, tuple(params[path].shape), {"data": data, "model": model})
+        if any("model" in sharding._axes(e) for e in entries):
+            out["/".join(path)] = tuple(params[path].shape)
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh", [(a, m) for a, m in TRAIN_RUNS
+                                       if m in TP_MESHES])
+def test_tp_step_computes_on_model_shards(runs, arch, mesh):
+    """On a model axis of 2, every rank's forward sees 1/2 of each leaf
+    split over model (its bytes half the whole) and every other leaf
+    whole, and rwkv6's scan runs on 1 of the 2 heads a rank; where the
+    arch does not split (rwkv6-3b at d_model 64: one head) every rank
+    sees every leaf whole. qwen2-7b with one KV head keeps wk and wv
+    whole on every rank."""
+    got = runs["meshes"][mesh][arch]
+    data = port_mesh.parse_mesh(mesh)[0]
+    assert got["shards"] == ON_SHARDS[arch]
+    assert len(got["ranks"]) == 2 * data
+    split = _model_split(arch, mesh)
+    whole = {"/".join(p): tuple(t.shape)
+             for p, t in _leaves(runs["inputs"][arch][0])}
+    assert split and set(split) < set(whole)
+    if arch == "qwen2-7b-kv1":
+        assert "blocks/attn/wk" not in split
+        assert "blocks/attn/wq" in split
+    for rank in got["ranks"]:
+        seen = rank["shapes"]
+        assert set(seen) == set(whole)
+        for path, shape in whole.items():
+            if got["shards"] and path in split:
+                assert np.prod(seen[path]) * 2 == np.prod(shape), path
+            else:
+                assert seen[path] == shape, path
+        if arch.startswith("rwkv6-3b"):
+            heads = worker.fp32_cfg(arch).d_model // 64
+            calls = rank["scan_heads"]
+            # 2 layers x 2 microbatches, each layer's forward twice (remat)
+            assert len(calls) == 8
+            assert set(calls) == {heads // 2 if got["shards"] else heads}
+
+
+def test_tp_collectives_are_adjoint_on_two_ranks(runs):
+    """Each autograd collective's backward is the adjoint of its forward
+    in fp64: <f(x), y> = <x, f*(y)>, a per-rank side summed over the
+    ranks and a replicated side taken once; the output and gradient
+    shapes are each rank's part."""
+    got = runs["tp_collectives"]
+    shapes = {"copy_to_model": ((3, 8, 5), (3, 8, 5)),
+              "reduce_from_model": ((3, 8, 5), (3, 8, 5)),
+              "gather_from_model": ((3, 8, 5), (3, 4, 5)),
+              "slice_for_model": ((3, 4, 5), (3, 8, 5))}
+    for name, want in shapes.items():
+        lhs, rhs, fx_shape, xbar_shape = got[name]
+        assert (fx_shape, xbar_shape) == want, name
+        assert lhs == pytest.approx(rhs, rel=1e-12, abs=1e-12), name
+        assert abs(lhs) > 1e-3, name
+
+
+def test_tp_collectives_are_the_identity_on_one_rank(runs):
+    """On a model axis of one rank, and with no mesh, each collective
+    returns its input itself: no op, no copy."""
+    assert runs["tp_collectives"]["identity"] == {
+        name: True for name in ("copy_to_model", "reduce_from_model",
+                                "gather_from_model", "slice_for_model")}
 
 
 def test_adamw_on_2x2_local_shards_matches_jax(runs):
@@ -687,3 +825,76 @@ def test_one_by_one_mesh_step_is_the_meshless_step(monkeypatch):
     (l0, c0, t0), (l1, c1, t1) = runs_by[True], runs_by[False]
     assert torch.equal(l0, l1) and c0 == c1 and t0 == t1
     assert set(c0) == {"rowstream_matmul", "flash_decode"}
+
+
+# --- tensor-parallel training: the paths and the 1x1 step ------------------
+
+@pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
+def test_train_tp_path_by_family(arch):
+    """Which reduced archs compute on the shards of a model axis of 2: the
+    dense family; rwkv6-3b at d_model 128 but not at 64 (one head); the
+    MoE family not yet (item 4c); the other families not yet. On a model
+    axis of one rank none does."""
+    cfg = reduced(ALL_ARCHS[arch])
+    on, why = registry.train_tp_path(cfg, 2)
+    assert on == (cfg.family == "dense")
+    assert cfg.name in why
+    if cfg.moe:
+        assert "item 4c" in why
+    assert get_adapter(cfg).supports_train_tp(2) == on
+    assert not get_adapter(cfg).supports_train_tp(1)
+    if cfg.family == "ssm":
+        assert "heads" in why
+        assert get_adapter(worker.fp32_cfg("rwkv6-3b-d128")) \
+            .supports_train_tp(2)
+
+
+def test_forward_on_a_model_axis_refuses_what_does_not_split():
+    """A family without a forward on model shards raises on a model axis of
+    several ranks with the reason (the train step gathers its parameters
+    whole instead); on a model axis of one rank the forward is the
+    single-process one."""
+    cfg = reduced(ALL_ARCHS["granite-moe-3b-a800m"], dtype="float32")
+    ad = get_adapter(cfg)
+    params = ad.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        ad.forward(params, batch, mesh=ModelAxis(2))
+    assert torch.equal(ad.forward(params, batch, mesh=ModelAxis(1)),
+                       ad.forward(params, batch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_by_one_mesh_train_step_is_the_meshless_step(monkeypatch, arch):
+    """On a 1x1 mesh the driver's step (which computes on model shards
+    where the family can) gathers every parameter whole, passes no mesh
+    to the loss and runs no collective: its loss and gradients are the
+    meshless step's bit for bit."""
+    from repro_torch.train import train_step as ts_mod
+    calls = []
+    for name in ("all_reduce", "all_gather"):
+        fn = getattr(torch.distributed, name)
+        monkeypatch.setattr(torch.distributed, name,
+                            lambda *a, _fn=fn, _n=name, **k:
+                            calls.append(_n) or _fn(*a, **k))
+    monkeypatch.setattr(ts_mod, "gather_batch",
+                        lambda x: calls.append("gather_batch") or x)
+    cfg = worker.fp32_cfg(arch)
+    ad = get_adapter(cfg)
+    params, batch = (bridge.to_torch(_bridged(arch)[2], "cpu"),
+                     parity_batch(cfg.vocab))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    losses = []
+
+    def loss_fn(p, b, *mesh):
+        losses.append(mesh)
+        return ad.loss(p, b, True, *mesh)
+
+    want = accumulate(loss_fn, params, batch, worker.MICRO)
+    mesh = port_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
+    placed = sharding.constrain_like(params, ad.param_specs("data", 1), mesh)
+    got = accumulate(loss_fn, placed, batch, worker.MICRO, shards=True)
+    assert not calls and losses == [()] * (2 * worker.MICRO)
+    assert torch.equal(got[0], want[0])
+    for (_, g), (_, w) in zip(_leaves(got[1]), _leaves(want[1])):
+        assert torch.equal(sharding.local(g), w)
