@@ -117,6 +117,24 @@ GPU, from the root of a checkout:
      launches are held against the plain versions and timed, and the
      ranks' launches joined along the heads (the single-process launches
      of the same layers) timed beside them.
+   * The MoE family and rwkv6-3b on model shards: granite-moe-3b (full
+     width and depth), phi3.5-moe-42b at full width cut to 8 of its 32
+     layers (21.3 GB in bf16; the whole model does not fit one card; a
+     line says so) and rwkv6-3b, each served without a mesh (granite also
+     on a 1x1 mesh: the meshless tokens at the meshless launches), then
+     two ranks spawned on the one card over gloo: 8 fed steps at 4 slots
+     on 1x2 (20 of 40 experts, 8 of 16, 20 of 40 heads a rank) in fp32 at
+     a cut depth, held at 0.15 against the meshless run, and in bf16
+     (reported), the ranks' routing decisions compared (they must agree)
+     and those that differ from the meshless run counted, then the bf16
+     model serving the driver's requests on 1x2 (`--only moe_tp`; the
+     full run leaves the serves out); phi3.5-moe also on 2x1 in fp32 at
+     2 layers over 32 steps (its routing groups spanning both ranks'
+     rows), its dropped assignments a step equal to the meshless run's;
+     then granite-moe-3b's train step on 1x2, fp32 at 4 layers against
+     the single-process step and 3 bf16 steps (cut to 8 layers in the
+     full run). rowstream_matmul and flash_decode_partial are timed at the
+     shapes a rank launches, each beside the whole product or cache.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -176,6 +194,9 @@ tensor-parallel training phase and its kernel checks and timings (no
 mesh and on a 1x1 mesh, then runs the two ranks on the card (no ``ok``
 line). The partial entry's per-launch times, at S 4096 and 32768 as one
 shard and split over 2 and 4 ranks, come with flash_decode's own timings.
+``--only moe_tp`` builds and checks the same two kernels, then runs only
+the MoE / rwkv6 phase on model shards and its timings, its bf16 training
+at all 32 layers (no ``ok`` line).
 ``--baseline`` runs either on a tree whose kernel predates its redesign
 (copy this script into that tree's root): it leaves out the checks and
 plan that the redesign added and times the old kernel's device kernels
@@ -306,6 +327,7 @@ FULL_RUN_BWD_LAUNCHES = 4
 # phases.
 MODEL_ONLY = (None, "zamba2", "whisper", "mllama")
 GRANITE = "granite-moe-3b-a800m"
+PHI = "phi3.5-moe-42b-a6.6b"
 ZAMBA = "zamba2-1.2b"
 WHISPER = "whisper-small"
 MLLAMA = "llama-3.2-vision-90b"
@@ -313,20 +335,21 @@ MLLAMA = "llama-3.2-vision-90b"
 # 80 GB card: it runs at full width with its depth cut to this many pattern
 # units of 4 self-attention layers and 1 cross-attention layer.
 MLLAMA_UNITS = 2
-# The full run cuts zamba2-1.2b to this many Mamba2 blocks (two
-# applications of its shared block): its profiled forward, whose SSD scan
+# The full run cuts zamba2-1.2b to this many Mamba2 blocks (one
+# application of its shared block): its profiled forward, whose SSD scan
 # runs token by token (as the reference's), took 250 s of a 1000 s run at
-# all 38 on the H100. `--only zamba2` runs all 38.
-FULL_RUN_ZAMBA_LAYERS = 12
+# all 38 on the H100, 76-96 s at 12. `--only zamba2` runs all 38.
+FULL_RUN_ZAMBA_LAYERS = 6
 # Stub inputs of the cross-attention families: frames and vision
 # embeddings N(0, 1) from SEED + 14.
 CROSS_SEED = SEED + 14
 # rowstream_matmul launches per layer of a decode step: qwen2-7b's seven
-# products, rwkv6-3b's ten, granite's q, k, v, o and router (its expert
-# products are torch.einsum, as in the reference), zamba2's in_proj and
+# products, rwkv6-3b's ten, the MoE family's q, k, v, o and router (its
+# expert products are torch.einsum, as in the reference), zamba2's in_proj and
 # out_proj (plus seven for each application of its shared block: q, k, v,
 # o and the three FFN products); plus one for the head.
-RM_PER_LAYER = {"qwen2-7b": 7, "rwkv6-3b": 10, GRANITE: 5, ZAMBA: 2}
+RM_PER_LAYER = {"qwen2-7b": 7, "rwkv6-3b": 10, GRANITE: 5, PHI: 5,
+                ZAMBA: 2}
 # zamba2's shared block has a dense layer's seven products.
 SHARED_PRODUCTS = QWEN_PRODUCTS
 # The paged-pool phase: qwen2-7b's layer geometry (4 KV heads of 128 in
@@ -3264,15 +3287,18 @@ MESH_TIMEOUT_S = 600
 def fed_logits(torch, ad, params, tokens, cache_dtype=None, mesh=None):
     """Logits (steps, b, V) in fp32 of decode steps fed tokens[t] (b, 1) at
     pos t from a fresh state, its cache in `cache_dtype` where given, on
-    `mesh` where given (`params` then this rank's shards)."""
+    `mesh` where given (`params` then this rank's shards, and the logits
+    its rows of the b)."""
+    from repro_torch.distributed.sharding import batch_rows
     kw = {} if cache_dtype is None else {"dtype": cache_dtype}
     state = ad.init_decode_state(tokens.shape[1], MAX_SEQ, device="cuda",
                                  mesh=mesh, **kw)
+    r0, r1 = batch_rows(tokens.shape[1], mesh)
     out = []
     with torch.inference_mode():
         for pos in range(tokens.shape[0]):
-            lg, state = ad.decode(params, {"tokens": tokens[pos]}, state,
-                                  pos, mesh)
+            lg, state = ad.decode(params, {"tokens": tokens[pos][r0:r1]},
+                                  state, pos, mesh)
             out.append(lg[:, 0].float())
     return torch.stack(out)
 
@@ -3391,29 +3417,35 @@ def mesh_rank_run(torch, tmp: Path) -> dict:
     return out
 
 
+def _spawned(fn, tmp: Path, timeout_s: int, what: str, ranks: int):
+    """Run `fn` on `ranks` spawned processes (rank, world, store, tmp),
+    killed past `timeout_s`; the seconds from spawn to join."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(ranks, str(tmp / "store"), str(tmp)),
+                             nprocs=ranks, start_method="spawn", join=False)
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+                proc.join()
+            raise SmokeFailure(f"the {ranks} {what} ranks ran past "
+                               f"{timeout_s} s and were killed")
+    return time.perf_counter() - t0
+
+
 def two_rank_phase(torch, ref: dict, sv: dict) -> dict:
     """Spawn MESH_RANKS ranks on the card (:func:`_mesh_rank`), wait for
     them within MESH_TIMEOUT_S, and hold their logits against `ref`'s
     (:func:`mesh_reference`) at LOGITS_ATOL, fp32 and bf16; count the
     served greedy tokens that differ from the meshless serve `sv`'s."""
-    import torch.multiprocessing as mp
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     try:
         torch.save(ref, tmp / "mesh_ref.pt")
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_mesh_rank, args=(
-            MESH_RANKS, str(tmp / "store"), str(tmp)), nprocs=MESH_RANKS,
-            start_method="spawn", join=False)
-        deadline = time.monotonic() + MESH_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                    proc.join()
-                raise SmokeFailure(f"the {MESH_RANKS} mesh ranks ran past "
-                                   f"{MESH_TIMEOUT_S} s and were killed")
-        seconds = time.perf_counter() - t0
+        seconds = _spawned(_mesh_rank, tmp, MESH_TIMEOUT_S, "mesh",
+                           MESH_RANKS)
         outs = [torch.load(tmp / f"mesh_out_{r}.pt")
                 for r in range(MESH_RANKS)]
     finally:
@@ -3715,24 +3747,12 @@ def train_tp_phase(torch) -> dict:
     against the single-process one (:func:`tp_fp32_verdict`); the bf16
     steps' finite losses, equal on every rank, at the 1x1 step's launches
     on TP_RANKS-th of the heads."""
-    import torch.multiprocessing as mp
     cfg = train_cfg()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
     try:
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_tp_rank, args=(
-            TP_RANKS, str(tmp / "store"), str(tmp)), nprocs=TP_RANKS,
-            start_method="spawn", join=False)
-        deadline = time.monotonic() + TP_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                    proc.join()
-                raise SmokeFailure(f"the {TP_RANKS} training ranks ran past "
-                                   f"{TP_TIMEOUT_S} s and were killed")
-        seconds = time.perf_counter() - t0
+        seconds = _spawned(_tp_rank, tmp, TP_TIMEOUT_S, "training",
+                           TP_RANKS)
         outs = [torch.load(tmp / f"tp_out_{r}.pt", weights_only=False)
                 for r in range(TP_RANKS)]
     finally:
@@ -3846,6 +3866,478 @@ def train_tp_kernels(torch, res: dict) -> dict:
             "works": {n: numbers(w) for n, w in works.items()}}
 
 
+# The MoE family and rwkv6 on model shards (``--only moe_tp``, and in the
+# full run): MOE_TP_RANKS ranks spawned on the one card over gloo, as the
+# two-rank checks above. The parent serves each model without a mesh
+# (granite-moe-3b also on a 1x1 mesh, which must give the meshless tokens
+# at the meshless launches) and keeps MESH_STEPS greedy steps of it: the
+# tokens fed, the logits in bf16 and in fp32 at a cut depth
+# (MOE_TP_FP32_LAYERS), each MoE layer's routing and dropped assignments.
+# The ranks then run the same steps on their shards: granite-moe-3b at
+# full width and depth on 1x2 (20 of 40 experts a rank), phi3.5-moe at
+# full width cut to PHI_LAYERS layers on 2x1 (each rank its 2 of the 4
+# rows, the routing groups spanning both) and on 1x2 (8 of 16 experts a
+# rank), rwkv6-3b on 1x2 (20 of 40 heads a rank); each bf16 model then
+# serves the driver's requests on 1x2. fp32 logits are held at
+# LOGITS_ATOL against the meshless run's, on 2x1 also the dropped
+# assignments of each step; the ranks of a model axis must choose the
+# same experts for every token (their disagreements are counted and must
+# be 0), and the decisions that differ from the meshless run's are
+# counted and printed. Then granite-moe-3b's train step on 1x2: fp32 at
+# MOE_TRAIN_FP32_LAYERS layers against the single-process step
+# (tp_fp32_check's rules), and bf16 for TP_STEPS steps. MOE_TP_TIMEOUT_S
+# bounds the ranks' run.
+MOE_TP_RANKS = 2
+PHI_LAYERS = 8
+MOE_TP_FP32_LAYERS = {GRANITE: 4, PHI: 2, "rwkv6-3b": 4}
+# Fed steps a model. At the driver's 4 slots granite's capacity (8, its
+# top_k) never binds, phi3.5-moe's (2) does when 3 of the 4 tokens pick one
+# of its 16 experts: about once in 13 (step, layer)s of its bf16 run on
+# the H100, so its fp32 run at 2 layers takes 32 steps.
+MOE_TP_STEPS = {GRANITE: MESH_STEPS, PHI: 32, "rwkv6-3b": MESH_STEPS}
+# The full run keeps the fed steps on 1x2 but serves none of the three
+# models there (granite's serve took 35 s of a full run on the H100);
+# `--only moe_tp` serves all three.
+FULL_RUN_MOE_TP_SERVES = ()
+MOE_TRAIN_FP32_LAYERS = 4
+# The full run cuts the bf16 training steps' depth to this many layers;
+# `--only moe_tp` trains all 32.
+FULL_RUN_MOE_TRAIN_LAYERS = 8
+MOE_TP_TIMEOUT_S = 900
+
+
+@contextlib.contextmanager
+def recorded_route(calls: list):
+    """Append, for every MoE layer's ``moe.route`` call, the experts chosen
+    for this process's own tokens (one row a token) and the assignments of
+    those tokens that capacity drops."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def record(*args, **kwargs):
+        r = route(*args, **kwargs)
+        idx = r.gate_idx.reshape(-1, r.gate_idx.shape[-1])
+        if r.own is not None:
+            idx = idx[r.own.reshape(-1)]
+        calls.append((idx.cpu(), moe.dropped(r)))
+        return r
+
+    moe.route = record
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def decisions_differ(a: list, b: list) -> int:
+    """(token, layer) routing decisions that differ between two runs'
+    recorded_route calls: tokens whose set of experts differs."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for (x, _), (y, _) in zip(a, b))
+
+
+def drops_by_step(calls: list, layers: int) -> list:
+    """Dropped assignments of each decode step (`layers` calls a step)."""
+    d = [n for _, n in calls]
+    return [sum(d[i:i + layers]) for i in range(0, len(d), layers)]
+
+
+def tp_reference(torch, cfg, params, prompts, fp32_layers: int,
+                 steps: int) -> dict:
+    """What the MoE / rwkv6 ranks are held against: `steps` greedy
+    steps of `cfg` (bf16) from the first token of each of the first SLOTS
+    prompts, their tokens, logits and MoE routing; then the same tokens
+    through `cfg` in fp32 cut to `fp32_layers` layers (weights from the
+    same seed, an fp32 cache), its logits and routing."""
+    from repro_torch.launch.serve import greedy_sample
+    from repro_torch.models.registry import get_adapter
+    ad = get_adapter(cfg)
+    state = ad.init_decode_state(SLOTS, MAX_SEQ, device="cuda")
+    tok = torch.tensor([[t[0]] for t in prompts[:SLOTS]], dtype=torch.int32,
+                       device="cuda")
+    toks, lgs, route16, route32 = [], [], [], []
+    with torch.inference_mode(), recorded_route(route16):
+        for pos in range(steps):
+            toks.append(tok)
+            lg, state = ad.decode(params, {"tokens": tok}, state, pos)
+            lgs.append(lg[:, 0].float())
+            tok = greedy_sample(lg)[:, None]
+    del state
+    tokens = torch.stack(toks)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=fp32_layers)
+    p32 = init_params(torch, cfg32)
+    with recorded_route(route32):
+        lg32 = fed_logits(torch, get_adapter(cfg32), p32, tokens,
+                          torch.float32)
+    del p32
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "fp32_layers": fp32_layers, "tokens": tokens.cpu(),
+            "bfloat16": torch.stack(lgs).cpu(), "float32": lg32.cpu(),
+            "route": {"bfloat16": route16, "float32": route32}}
+
+
+def _moe_tp_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of the MoE / rwkv6 check (a spawned process): a gloo group
+    through a FileStore, the run, its results saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = moe_tp_rank_run(torch, Path(tmp))
+        torch.save(out, Path(tmp) / f"moe_tp_out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_model_runs(torch, ref: dict, mesh, whole: bool = True,
+                   serve: bool = True) -> dict:
+    """This rank's runs of one model on `mesh`: fp32 at the reference's
+    cut depth and, with `whole`, bf16 at the reference's depth, each from
+    init(tp) on the seed placed by the serve driver's ``place_params`` and
+    fed the reference's tokens, the logits gathered over the batch axes,
+    the MoE routing recorded, the launches counted; then, with `whole`
+    and `serve`, the bf16 model serves the driver's requests on the
+    mesh."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import (BATCH_AXES, all_gather,
+                                                  model_size)
+    from repro_torch.kernels import launch_counters, reset_launch_counters
+    from repro_torch.launch.serve import place_params
+    from repro_torch.models.registry import get_adapter
+    cfg, n = ref["cfg"], model_size(mesh)
+    tokens = ref["tokens"].to("cuda")
+    out = {}
+    params = None
+    runs = [(dataclasses.replace(cfg, dtype="float32",
+                                 n_layers=ref["fp32_layers"]), torch.float32)]
+    for c, cache_dtype in runs + ([(cfg, None)] if whole else []):
+        ad = get_adapter(c)
+        params = None     # the previous model's shards, freed first
+        torch.cuda.empty_cache()
+        # Each rank builds the whole model before it keeps its shards:
+        # they take turns, so that one whole model at a time is on the
+        # card (phi3.5-moe's 8 layers are 21.3 GB).
+        for turn in range(dist.get_world_size()):
+            if turn == dist.get_rank():
+                params = place_params(ad, ad.init(torch.Generator(
+                    device="cuda").manual_seed(SEED), tp=n), mesh, n)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        calls = []
+        reset_launch_counters()
+        with recorded_route(calls):
+            lg = fed_logits(torch, ad, params, tokens, cache_dtype, mesh)
+        out[c.dtype] = {
+            "logits": all_gather(lg, mesh, BATCH_AXES, 1).cpu(),
+            "route": calls,
+            "counts": {k: v.count for k, v in launch_counters().items()},
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in _tensors(params))}
+    if whole and serve:
+        sv = serve_phase(torch, cfg, params, {"rowstream_matmul": per_step(
+            cfg)["rowstream_matmul"]}, mesh=mesh)
+        out["serve"] = {k: sv[k] for k in (
+            "counts", "steps", "tokens", "generated", "tokens_per_s",
+            "median_step_ms", "mean_step_ms", "first_step_ms")}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_run(torch, mesh, layers: int) -> dict:
+    """granite-moe-3b's train step on this rank's model shards: the fp32
+    check at MOE_TRAIN_FP32_LAYERS layers (tp_fp32_check), then TP_STEPS
+    bf16 steps of the driver's step at `layers` layers, each step's loss,
+    host ms and the parameter bytes its forward saw, and the peak
+    memory."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch import train as port_train
+    from repro_torch.models.registry import get_adapter, train_tp_path
+    gcfg = ALL_ARCHS[GRANITE]
+    out = {"fp32": tp_fp32_check(torch, mesh, dataclasses.replace(
+        gcfg, dtype="float32", n_layers=MOE_TRAIN_FP32_LAYERS))}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(gcfg, n_layers=layers)
+    ad = get_adapter(cfg)
+    out["path"] = train_tp_path(cfg, MOE_TP_RANKS)
+    step = port_train.make_step(ad, mesh, MOE_TP_RANKS, TRAIN_MICRO,
+                                TRAIN_LR)
+    seen, loss = [], ad.loss
+
+    def seen_loss(params, batch, remat=False, mesh=None):
+        seen.append(sum(t.numel() * t.element_size()
+                        for t in _tensors(params)))
+        return loss(params, batch, remat, mesh)
+
+    ad.loss = seen_loss
+    losses, step_ms = [], []
+    try:
+        with use_mesh(mesh):
+            state = port_train.init_state(ad, mesh, MOE_TP_RANKS, SEED,
+                                          "cuda")
+            whole = sum(p.numel() * p.element_size()
+                        for p in _tensors(state.params))
+            for i in range(TP_STEPS):
+                batch = _tp_batch(torch, cfg, i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ad.loss = loss
+    del state
+    out.update(layers=layers, losses=losses, step_ms=step_ms,
+               seen_bytes=seen[0], whole_bytes=whole,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_tp_rank_run(torch, tmp: Path) -> dict:
+    """This rank's part of the MoE / rwkv6 check (see MOE_TP_RANKS)."""
+    from repro_torch.launch.mesh import make_mesh
+    refs = torch.load(tmp / "moe_tp_ref.pt", weights_only=False)
+    one_by_two = make_mesh((1, MOE_TP_RANKS), ("data", "model"), "cuda")
+    two_by_one = make_mesh((MOE_TP_RANKS, 1), ("data", "model"), "cuda")
+    out = {}
+    for name, ref in refs["models"].items():
+        out[name] = {"1x2": _tp_model_runs(torch, ref, one_by_two,
+                                           serve=name in refs[
+                                               "serve_on_mesh"])}
+        if name == PHI:
+            out[name]["2x1"] = _tp_model_runs(torch, ref, two_by_one, False)
+    out["train"] = moe_train_run(torch, one_by_two, refs["train_layers"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def moe_tp_references(torch) -> dict:
+    """The parent's side of the MoE / rwkv6 check: each model served
+    without a mesh (granite-moe-3b also on a 1x1 mesh), then its
+    reference (:func:`tp_reference`), each model freed before the next."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    models, serves, one = {}, {}, None
+    pcfg = dataclasses.replace(ALL_ARCHS[PHI], n_layers=PHI_LAYERS)
+    for cfg in (ALL_ARCHS[GRANITE], pcfg, ALL_ARCHS["rwkv6-3b"]):
+        params = init_params(torch, cfg)
+        if cfg is pcfg:
+            n = sum(t.numel() * t.element_size() for t in _tensors(params))
+            print(f"[depth] {PHI} at full width cut to {PHI_LAYERS} of its "
+                  f"32 layers: {n / 1e9:.2f} GB of bf16 weights, about "
+                  f"{n / 2e9:.2f} GB a rank on 1x{MOE_TP_RANKS} (the whole "
+                  f"model is about 84 GB, more than the card holds)")
+        sv = serve_phase(torch, cfg, params, per_step(cfg))
+        print_serve(f"{cfg.name} ({cfg.n_layers} layers)", sv)
+        if cfg.name == GRANITE:
+            one = mesh_serve_phase(torch, cfg, params, sv)
+        prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                            key=lambda r: r.rid)]
+        models[cfg.name] = tp_reference(torch, cfg, params, prompts,
+                                        MOE_TP_FP32_LAYERS[cfg.name],
+                                        MOE_TP_STEPS[cfg.name])
+        serves[cfg.name] = sv
+        del params
+        torch.cuda.empty_cache()
+    return {"models": models, "serves": serves, "mesh_1x1": one}
+
+
+def moe_tp_phase(torch, train_layers: int, serves=(GRANITE, PHI,
+                                                  "rwkv6-3b")) -> dict:
+    """The MoE / rwkv6 check (see MOE_TP_RANKS): references, the ranks'
+    run (the bf16 training at `train_layers` layers, the models of
+    `serves` serving on 1x2), the verdicts."""
+    t_ref = time.perf_counter()
+    refs = moe_tp_references(torch)
+    ref_s = time.perf_counter() - t_ref
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_tp_"))
+    try:
+        torch.save({"models": refs["models"], "train_layers": train_layers,
+                    "serve_on_mesh": tuple(serves)}, tmp / "moe_tp_ref.pt")
+        torch.cuda.empty_cache()
+        print(f"[moe_tp] the parent holds {torch.cuda.memory_allocated()} "
+              f"bytes on the card ({torch.cuda.memory_reserved()} reserved) "
+              f"while the ranks run", flush=True)
+        seconds = _spawned(_moe_tp_rank, tmp, MOE_TP_TIMEOUT_S, "MoE / rwkv6",
+                           MOE_TP_RANKS)
+        outs = [torch.load(tmp / f"moe_tp_out_{r}.pt", weights_only=False)
+                for r in range(MOE_TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"seconds": seconds, "reference_seconds": ref_s,
+           "mesh_1x1": numbers_of_serve(refs["mesh_1x1"]),
+           "meshless_counts": {name: sv["counts"]
+                               for name, sv in refs["serves"].items()},
+           "peak_bytes": [o["peak_bytes"] for o in outs], "models": {}}
+    for name, ref in refs["models"].items():
+        res["models"][name] = {
+            mesh: tp_model_verdict(name, mesh, ref, [o[name][mesh]
+                                                     for o in outs],
+                                   refs["serves"][name])
+            for mesh in outs[0][name]}
+    res["train"] = moe_train_verdict([o["train"] for o in outs])
+    print(f"[moe_tp] references {ref_s:.1f} s; ranks {seconds:.1f} s from "
+          f"spawn to join; peak bytes by rank {res['peak_bytes']}")
+    return res
+
+
+def tp_model_verdict(name: str, mesh: str, ref: dict, outs: list,
+                     sv: dict) -> dict:
+    """Check and print one model's runs on `mesh` against its reference:
+    equal logits on every rank, fp32 logits within LOGITS_ATOL, no
+    routing disagreement between the ranks of a model axis, on 2x1 the
+    meshless run's dropped assignments a step; the bf16 logits, routing
+    flips and served tokens that differ reported."""
+    import torch
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        if dt not in outs[0]:
+            continue
+        got, want = outs[0][dt]["logits"], ref[dt]
+        check(all(torch.equal(o[dt]["logits"], got) for o in outs),
+              f"{name} on {mesh}: the ranks return different {dt} logits")
+        diff = (got - want).abs().max().item()
+        calls = [o[dt]["route"] for o in outs]
+        r = {"max_diff": diff, "max_logit": want.abs().max().item(),
+             "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
+             "positions": got.shape[0] * got.shape[1],
+             "counts": [o[dt]["counts"] for o in outs],
+             "weight_bytes": [o[dt]["weight_bytes"] for o in outs]}
+        steps = ref["tokens"].shape[0]
+        if calls[0]:
+            per_step = len(calls[0]) // steps
+            if mesh == "1x2":
+                r["rank_disagreements"] = decisions_differ(calls[0], calls[1])
+                check(r["rank_disagreements"] == 0,
+                      f"{name} {dt} on {mesh}: the ranks route "
+                      f"{r['rank_disagreements']} (token, layer) decisions "
+                      f"differently")
+                mine = calls[0]
+            else:
+                # each rank recorded its own rows: join them per call
+                mine = [(torch.cat([c[i][0] for c in calls]),
+                         sum(c[i][1] for c in calls))
+                        for i in range(len(calls[0]))]
+            r["routing_flips"] = decisions_differ(mine, ref["route"][dt])
+            r["decisions"] = sum(int(x.shape[0]) for x, _ in mine)
+            r["dropped_by_step"] = drops_by_step(mine, per_step)
+            r["meshless_dropped_by_step"] = drops_by_step(ref["route"][dt],
+                                                          per_step)
+        if dt == "float32" or mesh == "2x1":
+            check(tuple(got.shape) == tuple(want.shape)
+                  and bool(got.isfinite().all()) and diff <= LOGITS_ATOL,
+                  f"{name} {dt} on {mesh}: logits differ from the meshless "
+                  f"run by {diff} (> {LOGITS_ATOL})")
+        if mesh == "2x1":
+            check(r["dropped_by_step"] == r["meshless_dropped_by_step"],
+                  f"{name} {dt} on {mesh}: dropped assignments a step "
+                  f"{r['dropped_by_step']} against the meshless run's "
+                  f"{r['meshless_dropped_by_step']}")
+        routing = "" if "routing_flips" not in r else (
+            f"; {r['routing_flips']} of {r['decisions']} (token, layer) "
+            f"routing decisions differ from the meshless run's, "
+            f"{r.get('rank_disagreements', 'n/a')} between the ranks; "
+            f"dropped assignments a step {r['dropped_by_step']} (meshless "
+            f"{r['meshless_dropped_by_step']}, "
+            f"{sum(r['meshless_dropped_by_step'])} in all)")
+        layers = ref["fp32_layers"] if dt == "float32" \
+            else ref["cfg"].n_layers
+        print(f"[moe_tp] {name} {dt} at {layers} layers on {mesh} (ranks "
+              f"sharing the card over gloo), {steps} fed steps at "
+              f"{SLOTS} slots: max |mesh - meshless| logits {diff!r} "
+              f"({'held at ' + str(LOGITS_ATOL) if dt == 'float32' or mesh == '2x1' else 'reported only'}; "
+              f"max |logit| {r['max_logit']!r}), argmax agrees at "
+              f"{r['argmax_agree']}/{r['positions']}{routing}; launches by "
+              f"rank {r['counts']}; weight bytes by rank "
+              f"{r['weight_bytes']}")
+        res[dt] = r
+    if "serve" in outs[0]:
+        served = outs[0]["serve"]
+        check(all(o["serve"]["tokens"] == served["tokens"] for o in outs),
+              f"{name} on {mesh}: the ranks recorded different tokens")
+        differ = sum(a != b for rid, toks in sv["tokens"].items()
+                     for a, b in zip(toks, served["tokens"][rid]))
+        res["serve"] = dict(
+            {k: v for k, v in served.items() if k != "tokens"},
+            tokens_differ=differ,
+            tokens_total=sum(map(len, sv["tokens"].values())),
+            counts=[o["serve"]["counts"] for o in outs],
+            meshless_median_step_ms=sv["median_step_ms"])
+        print(f"[moe_tp] {name} bf16 served on {mesh}: {served['steps']} "
+              f"steps, {differ} of {res['serve']['tokens_total']} greedy "
+              f"tokens differ from the meshless serve; step median "
+              f"{served['median_step_ms']!r} ms (meshless "
+              f"{sv['median_step_ms']!r}; two ranks on one card, "
+              f"collectives staged through the host: a correctness run, "
+              f"not a speed); launches by rank {res['serve']['counts']}")
+    return res
+
+
+def moe_train_verdict(parts: list) -> dict:
+    """Check and print granite-moe-3b's train step on 1x2: the fp32 step
+    by tp_fp32_verdict's rules; the bf16 steps' finite losses, equal on
+    every rank."""
+    fp32 = tp_fp32_verdict([p["fp32"] for p in parts])
+    f = parts[0]
+    for r, p in enumerate(parts):
+        check(p["path"][0], f"rank {r}: {p['path'][1]}")
+        check(all(math.isfinite(x) for x in p["losses"])
+              and p["losses"] == f["losses"],
+              f"rank {r}: bf16 losses {p['losses']} (rank 0: "
+              f"{f['losses']})")
+    out = {"fp32": fp32, "layers": f["layers"], "losses": f["losses"],
+           "step_ms": [p["step_ms"] for p in parts],
+           "seen_bytes": [p["seen_bytes"] for p in parts],
+           "whole_bytes": f["whole_bytes"],
+           "peak_bytes": [p["peak_bytes"] for p in parts]}
+    print(f"[moe_tp] {f['path'][1]}")
+    print(f"[moe_tp] {GRANITE} bf16 train step on 1x{MOE_TP_RANKS} at "
+          f"{f['layers']} layers, {TP_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches: losses "
+          f"{f['losses']!r}; parameter bytes the forward saw by rank "
+          f"{out['seen_bytes']} of {out['whole_bytes']}; peak memory by "
+          f"rank {out['peak_bytes']} bytes; step ms by rank "
+          f"{out['step_ms']!r} (two ranks sharing one card over host-staged "
+          f"gloo: a correctness run, not a speed)")
+    return out
+
+
+def moe_tp_kernels(torch) -> dict:
+    """rowstream_matmul at the products a rank of 1x2 launches at decode
+    (granite-moe-3b, phi3.5-moe, rwkv6-3b), each beside the whole
+    product, and flash_decode_partial over a rank's half of the serve
+    cache (granite-moe-3b, phi3.5-moe) beside the whole one."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.distributed.sharding import padded_vocab
+    n = MOE_TP_RANKS
+    shapes = []     # (a rank's shard, the whole product) pairs
+    for name in (GRANITE, PHI):
+        c = ALL_ARCHS[name]
+        d, q, kv = c.d_model, c.n_heads * c.resolved_head_dim, \
+            c.n_kv_heads * c.resolved_head_dim
+        V = padded_vocab(c.vocab)
+        shapes += [((d, q // n), (d, q)), ((d, kv // n), (d, kv)),
+                   ((q // n, d), (q, d)), ((d, V // n), (d, V))]
+    r = ALL_ARCHS["rwkv6-3b"]
+    d, ff, V = r.d_model, r.d_ff, padded_vocab(r.vocab)
+    shapes += [((d, d // n), (d, d)), ((d // n, d), (d, d)),
+               ((d, ff // n), (d, ff)), ((ff // n, d), (ff, d)),
+               ((d, V // n), (d, V))]
+    shapes = list(dict.fromkeys(s for pair in shapes for s in pair))
+    products = rowstream_products(torch, shapes)
+    partial = {name: partial_timings(torch, ALL_ARCHS[name], (MAX_SEQ,),
+                                     (1, n))
+               for name in (GRANITE, PHI)}
+    return {"rowstream_matmul": products, "flash_decode_partial": partial}
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
@@ -3853,7 +4345,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
                                        "mllama", "train", "train_tp",
-                                       "mesh"],
+                                       "mesh", "moe_tp"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -3889,7 +4381,7 @@ def main(argv=None) -> int:
         names = build.KERNELS
     elif args.only in ("rwkv_scan", "train", "train_tp") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
-    elif args.only == "mesh":
+    elif args.only in ("mesh", "moe_tp"):
         names = ("flash_decode", "rowstream_matmul")
     else:
         names = (args.only,)
@@ -3952,6 +4444,15 @@ def main(argv=None) -> int:
     partial = check_flash_partial(torch, dev)
     if args.only == "flash_decode":
         flash_phase()
+        print(card)
+        return 0
+    if args.only == "moe_tp":
+        errs["rowstream_matmul"] = check_rowstream(torch, dev)
+        mt = moe_tp_phase(torch, ALL_ARCHS[GRANITE].n_layers)
+        mt["kernels"] = moe_tp_kernels(torch)
+        print(json.dumps({"moe_tp": dict(mt, partial_checks=partial,
+                                         max_abs_err=errs)}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
     if args.only == "mesh":
@@ -4061,6 +4562,17 @@ def main(argv=None) -> int:
     train_tp = train_tp_phase(torch)
     lap("rwkv6-3b training on 1x2")
     train_s = time.perf_counter() - t0
+    print(f"[depth] {GRANITE} bf16 train step on 1x{MOE_TP_RANKS}: cut to "
+          f"{FULL_RUN_MOE_TRAIN_LAYERS} of its "
+          f"{gcfg.n_layers} layers in the full run; --only moe_tp trains "
+          f"all {gcfg.n_layers}")
+    print(f"[depth] on 1x{MOE_TP_RANKS} the full run serves "
+          f"{', '.join(FULL_RUN_MOE_TP_SERVES) or 'none of the models'} "
+          f"(their fed steps run); --only moe_tp serves {GRANITE}, {PHI} "
+          f"and rwkv6-3b")
+    moe_tp = moe_tp_phase(torch, FULL_RUN_MOE_TRAIN_LAYERS,
+                          FULL_RUN_MOE_TP_SERVES)
+    lap("the MoE family and rwkv6-3b on 1x2 and 2x1")
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -4114,6 +4626,8 @@ def main(argv=None) -> int:
     train_s += time.perf_counter() - t0
     print(f"[run] the training phases took {train_s:.0f} s")
     lap("training profiled, 1x2 kernels timed")
+    moe_tp["kernels"] = moe_tp_kernels(torch)
+    lap("rowstream_matmul and flash_decode_partial on a rank's shards")
 
     # qwen2-7b and granite again, from the same seed, for their profiled
     # parts.
@@ -4184,6 +4698,18 @@ def main(argv=None) -> int:
     for r, steps in enumerate(train_tp["counts"]):
         paths[f"rwkv6-3b train on 1x{TP_RANKS}, rank {r}"] = {
             n: sum(c[n] for c in steps) for n in steps[0]}
+    paths[f"{GRANITE} serve on a 1x1 mesh"] = \
+        moe_tp["mesh_1x1"]["mesh_1x1"]["counts"]
+    for name, c in moe_tp["meshless_counts"].items():
+        paths[f"{name} serve before its mesh runs"] = c
+    for name, runs in moe_tp["models"].items():
+        for mesh, r in runs.items():
+            for dt in ("float32", "bfloat16"):
+                for rank, c in enumerate(r.get(dt, {}).get("counts", [])):
+                    paths[f"{name} {dt} fed steps on {mesh}, rank {rank}"] \
+                        = c
+            for rank, c in enumerate(r.get("serve", {}).get("counts", [])):
+                paths[f"{name} serve on {mesh}, rank {rank}"] = c
     # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
     # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
@@ -4205,6 +4731,7 @@ def main(argv=None) -> int:
             "per": f"{t['per']}: {t['launches_per_step']} launches",
             "launches_by_path": {p: c[name] for p, c in paths.items()}}
         if name == "rowstream_matmul":
+            entry["moe_tp_shards"] = moe_tp["kernels"]["rowstream_matmul"]
             entry["on_rwkv6_step"] = works["rowstream_matmul on rwkv6-3b"]
             entry["on_zamba2_step"] = works[
                 "rowstream_matmul on zamba2-1.2b"]
@@ -4227,6 +4754,7 @@ def main(argv=None) -> int:
                                 "per_launch": long_fd.pop("partial")}
             entry["mesh"] = {"1x1": numbers_of_serve(mesh_one),
                              "1x2": mesh_two}
+            entry["moe_tp_partial"] = moe_tp["kernels"]["flash_decode_partial"]
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
             for m, cp in cross_prof.items():

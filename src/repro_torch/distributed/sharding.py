@@ -305,7 +305,7 @@ def data_rows(mesh) -> tuple[int, int]:
     """(index, count): this rank's place among the ranks that split the
     batch (the mesh's ``pod`` and ``data`` axes, pod major); (0, 1) with
     no mesh."""
-    if mesh is None:
+    if mesh is None or not _dims(mesh, BATCH_AXES):
         return 0, 1
     coord = mesh.get_coordinate()
     index, count = 0, 1
@@ -313,6 +313,18 @@ def data_rows(mesh) -> tuple[int, int]:
         index = index * mesh.shape[m] + coord[m]
         count *= mesh.shape[m]
     return index, count
+
+
+def batch_mesh(mesh):
+    """The sub-mesh of `mesh`'s batch axes that hold several ranks (its
+    rows' coordinates are theirs), or None where there are none: the mesh
+    a forward on whole parameters gets where something it computes spans
+    the rows of several ranks (the MoE family's routing groups)."""
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names[m] for m in _dims(mesh, BATCH_AXES)
+                  if mesh.shape[m] > 1)
+    return mesh[names] if names else None
 
 
 def batch_rows(batch: int, mesh) -> tuple[int, int]:

@@ -12,6 +12,8 @@ mesh.
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --mesh 1x2                  # in each of 2 ranks of a gloo group
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch granite-moe-3b-a800m --mesh 1x2       # likewise, 4 experts a rank
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device``. It serves the dense and MoE families (a KV cache), rwkv6 (a
@@ -43,9 +45,14 @@ larger mesh needs ranks started around it. Parameters come from
 ``param_specs(tp=model)``. Every rank runs the same deterministic batcher
 and decodes its rows of the slot array; the sampled tokens are gathered
 over the batch axes, so every rank records the same tokens. On a
-``model`` axis of several ranks the dense family decodes tensor- and
-context-parallel (``models/transformer.py``); the other families are
-refused there. On ``cuda`` a mesh holds one card.
+``model`` axis of several ranks the dense and MoE families decode tensor-
+and context-parallel, the MoE's experts split over the ranks
+(``models/transformer.py``, ``models/moe.py``), and rwkv6 on its heads
+(``models/rwkv6.py``); the hybrid, VLM and audio families are refused
+there, and so is a shape that does not split (reduced rwkv6-3b's one
+head). The MoE family's routing groups span the batch axes' rows, as the
+reference's span the whole batch, so its slots must split evenly over
+them. On ``cuda`` a mesh holds one card.
 """
 from __future__ import annotations
 

@@ -21,10 +21,14 @@ heads padded to a multiple of TP (the mesh's last dim).
 mesh: parameters and AdamW moments as DTensors under the family's
 ``param_specs`` with ZeRO over ``data`` (``fsdp="data"``) and
 tensor-parallel storage over ``model`` (``train/train_step.py``). On a
-``model`` axis of several ranks the dense family and rwkv6 compute on
-each rank's shards, their gathers over ``data`` only; the other families,
-and shapes the axis does not divide, gather every parameter whole. Rank 0
-prints which (``[train] ...`` from ``models.registry.train_tp_path``).
+``model`` axis of several ranks the dense and MoE families and rwkv6
+compute on each rank's shards (the MoE's experts, or each expert's FFN
+width, split over the ranks), their gathers over ``data`` only; the other
+families, and shapes the axis does not divide, gather every parameter
+whole. Rank 0 prints which (``[train] ...`` from
+``models.registry.train_tp_path``). Where ``data`` holds several ranks
+the MoE family's routing groups span their rows, as the reference's span
+the whole microbatch.
 As in the reference, ``--mesh 4`` gives the
 axes ``("data",)`` with TP 4. The mesh covers the process group
 (``launch/mesh.py``): a 2x2 mesh runs on 4 ranks, each running this

@@ -28,17 +28,21 @@ recomputes each layer (block) in the backward, as the reference's
 tuples of the parameters and the decode state
 (``distributed/sharding.py`` places them on a mesh). ``init_decode_state``
 and ``decode`` take a ``mesh`` (default none: the meshless step): each
-rank decodes its rows of the batch, and the dense family also decodes on
-a ``model`` axis of several ranks, tensor- and context-parallel
-(``models/transformer.py``); the other families raise there
-(:func:`check_decode_mesh`). ``forward`` and ``loss`` take a ``mesh``
-too (default none): where the ``model`` axis holds several ranks, the
-dense and SSM families compute on each rank's shards of the parameters
-(the training forward on shards, ``models/transformer.py``,
-``models/rwkv6.py``); :func:`train_tp_path` says which families and
-shapes do, and the train step gathers the others' parameters whole. The
-reference's ``input_structs`` and ``supports`` wait for the
-launch-tooling slice.
+rank decodes its rows of the batch, and the dense, MoE and SSM families
+also decode on a ``model`` axis of several ranks: the dense and MoE
+families tensor- and context-parallel, the MoE's experts split by
+``moe_param_specs`` (``models/transformer.py``, ``models/moe.py``),
+rwkv6 on its heads (``models/rwkv6.py``); the hybrid, VLM and audio
+families raise there (:func:`check_decode_mesh`). ``forward`` and
+``loss`` take a ``mesh`` too (default none): where the ``model`` axis
+holds several ranks, the dense, MoE and SSM families compute on each
+rank's shards of the parameters (the training forward on shards);
+:func:`train_tp_path` says which families and shapes do, and the train
+step gathers the others' parameters whole. On a mesh whose ``model`` axis
+holds one rank the forward is the single-process one, except that the
+MoE family forms its routing groups over the rows of the mesh's batch
+axes (the reference's groups over the whole batch). The reference's
+``input_structs`` and ``supports`` wait for the launch-tooling slice.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
-from ..distributed.sharding import batch_rows, model_size
+from ..distributed.sharding import batch_rows, data_rows, model_size
 from . import mllama, rwkv6, transformer, whisper, zamba2
 
 
@@ -78,14 +82,16 @@ def _tfm_decode(params, cfg, batch, state, pos, mesh=None):
 
 
 def check_decode_mesh(cfg, model: int) -> None:
-    """Raise where `cfg`'s family has no tensor-parallel decode and the
-    mesh's ``model`` axis holds `model` > 1 ranks."""
-    if model > 1 and cfg.family != "dense":
+    """Raise where `cfg`'s family has no tensor-parallel decode (the
+    hybrid, VLM and audio families) and the mesh's ``model`` axis holds
+    `model` > 1 ranks. (A shape of the other families that does not split
+    is refused by their decode step, with the reason.)"""
+    if model > 1 and cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family decodes on a model axis "
             f"of one rank only; a model axis of {model} waits for ROADMAP "
-            f"Queue 1 item 4c (tensor-parallel decode of the MoE, rwkv6, "
-            f"zamba2, whisper and mllama families)")
+            f"Queue 1 item 4c (tensor-parallel decode of the zamba2, "
+            f"whisper and mllama families)")
 
 
 def _rwkv_forward(params, cfg, batch, remat, mesh=None):
@@ -94,8 +100,8 @@ def _rwkv_forward(params, cfg, batch, remat, mesh=None):
 
 def train_tp_path(cfg, model: int) -> tuple[bool, str]:
     """(whether `cfg` computes on the shards of a ``model`` axis of
-    `model` ranks, a sentence that says so): the dense family (its MoE
-    sibling not yet) and rwkv6 where the axis divides their shapes
+    `model` ranks, a sentence that says so): the dense and MoE families
+    and rwkv6 where the axis divides their shapes
     (``transformer.train_tp_refusal``, ``rwkv6.train_tp_refusal``). Every
     other case trains with each parameter gathered whole on every rank;
     on a ``model`` axis of one rank that is the single-process step."""
@@ -116,12 +122,12 @@ def train_tp_path(cfg, model: int) -> tuple[bool, str]:
                   f"model axis of {model} ranks")
 
 
-def _rwkv_decode(params, cfg, batch, state, pos):
-    return rwkv6.decode_step(params, cfg, batch["tokens"], state, pos)
+def _rwkv_decode(params, cfg, batch, state, pos, mesh=None):
+    return rwkv6.decode_step(params, cfg, batch["tokens"], state, pos, mesh)
 
 
-def _rwkv_init_state(cfg, batch, max_seq, dtype, device, tp=1):
-    return rwkv6.init_state(cfg, batch, device)
+def _rwkv_init_state(cfg, batch, max_seq, dtype, device, tp=1, mesh=None):
+    return rwkv6.init_state(cfg, batch, device, mesh)
 
 
 def _zamba_forward(params, cfg, batch, remat):
@@ -208,8 +214,13 @@ class ModelAdapter:
         families and shapes :func:`train_tp_path` names; the others raise
         there.
         Without a mesh, or on a ``model`` axis of one rank, the
-        single-process forward."""
+        single-process forward on whole parameters (the MoE family's
+        routing groups formed over the rows of the mesh's batch axes,
+        whose ranks then hold this rank's coordinates)."""
         if mesh is None or model_size(mesh) == 1:
+            if self.cfg.moe and data_rows(mesh)[1] > 1:
+                return self._fns["forward"](params, self.cfg, batch, remat,
+                                            mesh)
             return self._fns["forward"](params, self.cfg, batch, remat)
         ok, why = train_tp_path(self.cfg, model_size(mesh))
         if not ok:
@@ -234,7 +245,8 @@ class ModelAdapter:
                           tp: int = 1, mesh=None) -> dict:
         """The decode state of `batch` rows; on a `mesh` this rank's share
         (its rows, and for the dense and MoE families the KV cache's
-        shard, ``transformer.init_cache``)."""
+        shard, ``transformer.init_cache``; for rwkv6 its heads of the
+        state, ``rwkv6.init_state``)."""
         if mesh is None:
             return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
                                            device, tp)
@@ -242,6 +254,8 @@ class ModelAdapter:
         if self._fns is _TRANSFORMER:
             return transformer.init_cache(self.cfg, batch, max_seq, dtype,
                                           device, tp, mesh)
+        if self.cfg.family == "ssm":
+            return rwkv6.init_state(self.cfg, batch, device, mesh)
         start, stop = batch_rows(batch, mesh)
         return self._fns["init_state"](self.cfg, stop - start, max_seq,
                                        dtype, device, tp)
@@ -253,8 +267,9 @@ class ModelAdapter:
         if mesh is None:
             return self._fns["decode"](params, self.cfg, batch, state, pos)
         check_decode_mesh(self.cfg, model_size(mesh))
-        if self._fns is _TRANSFORMER:
-            return _tfm_decode(params, self.cfg, batch, state, pos, mesh)
+        if self.cfg.family in ("dense", "moe", "ssm"):
+            return self._fns["decode"](params, self.cfg, batch, state, pos,
+                                       mesh)
         return self._fns["decode"](params, self.cfg, batch, state, pos)
 
     def state_specs(self) -> dict:

@@ -46,15 +46,28 @@ gradient comes out whole on every rank:
   channels; their backward gathers the parts' gradients.
 * ``cr`` (replicated) acts on the replicated channel-mix input and its
   product is computed whole on every rank: no collective.
+
+``decode_step`` and ``init_state`` with such a mesh decode on the same
+shards: the state ``S`` holds the rank's H / n heads (the reference's
+``state_specs`` split it by head over ``model``), each layer's time mix
+runs on them (:func:`_time_mix_step`, the same slices as
+:func:`_time_mix_seq`) with wo's partial products summed over ``model``
+by the decode collective, the channel mix as in the forward, and the
+head's columns are gathered. ``x_tm`` and ``x_cm`` stay whole on every
+rank. Where n does not divide the heads, d_ff or the padded vocab
+(:func:`train_tp_refusal`) the decode state and step refuse with the
+reason.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import (copy_to_model, gather_from_model,
-                                    model_size, padded_vocab,
-                                    reduce_from_model, slice_for_model)
+from ..distributed.sharding import (TP_AXIS, all_gather, all_reduce_sum,
+                                    batch_rows, copy_to_model,
+                                    gather_from_model, model_size,
+                                    padded_vocab, reduce_from_model,
+                                    slice_for_model)
 from ..kernels.rwkv_scan.ops import rwkv_scan
 from .layers import dense_init, matmul, rmsnorm
 from .transformer import (_dtype, _embed, _index, _layers, _stack, _stacked,
@@ -164,10 +177,13 @@ def _group_norm(o: torch.Tensor, ln_x: torch.Tensor,
 
 
 def _time_mix_step(bp: dict, cfg, x: torch.Tensor, x_prev: torch.Tensor,
-                   S: torch.Tensor) -> tuple:
+                   S: torch.Tensor, mesh=None) -> tuple:
     """One token of time mixing. x, x_prev: (b, d); S: (b, H, hd, hd)
-    fp32. Returns (out (b, d), new S)."""
-    H, hd = n_heads(cfg), HEAD_DIM
+    fp32. Returns (out (b, d), new S). On a tensor-parallel `mesh` (see
+    :func:`decode_step`) on this rank's H / n heads, as
+    :func:`_time_mix_seq`: S holds them, and wo's partial product is
+    summed over ``model``."""
+    H, hd = n_heads(cfg) // model_size(mesh), HEAD_DIM
     b = x.shape[0]
     mix = x[:, None, :] + (x_prev - x)[:, None, :] * bp["mu"]     # (b, 5, d)
     xr, xk, xv, xg, xw = mix.unbind(1)
@@ -175,12 +191,13 @@ def _time_mix_step(bp: dict, cfg, x: torch.Tensor, x_prev: torch.Tensor,
     k = matmul(xk, bp["wk"]).reshape(b, H, hd).float()
     v = matmul(xv, bp["wv"]).reshape(b, H, hd).float()
     g = F.silu(matmul(xg, bp["wg"]))
-    w = _decay(bp, xw).reshape(b, H, hd)
+    w = _decay(bp, xw, matmul, mesh).reshape(b, H, hd)
     kv = k[..., :, None] * v[..., None, :]                        # rank-1
-    o = torch.einsum("bhk,bhkv->bhv", r, S + bp["u"][None, :, :, None] * kv)
+    u = slice_for_model(bp["u"], mesh, 0)
+    o = torch.einsum("bhk,bhkv->bhv", r, S + u[None, :, :, None] * kv)
     S = w[..., None] * S + kv
-    o = _group_norm(o, bp["ln_x"], x.dtype)
-    return matmul(o * g, bp["wo"]), S
+    o = _group_norm(o, slice_for_model(bp["ln_x"], mesh, 0), x.dtype)
+    return all_reduce_sum(matmul(o * g, bp["wo"]), mesh, TP_AXIS), S
 
 
 def _channel_mix_step(bp: dict, x: torch.Tensor, x_prev: torch.Tensor,
@@ -292,15 +309,29 @@ def check_train_shards(params: dict, cfg, n: int) -> None:
                          f"(parameters placed by param_specs)")
 
 
-def init_state(cfg, batch: int, device="cuda") -> dict:
+def init_state(cfg, batch: int, device="cuda", mesh=None) -> dict:
     """Recurrent decode state (per layer): the previous token's normed
     activations of each mix, in the model dtype, and the (H, hd, hd) fp32
-    linear-attention state; O(1) in sequence length."""
+    linear-attention state; O(1) in sequence length. On a `mesh`, this
+    rank's share under ``state_specs``: its rows of the batch
+    (``sharding.batch_rows``) and, where ``model`` holds n > 1 ranks, its
+    H / n heads of S (refused with :func:`train_tp_refusal`'s reason
+    where the shapes do not split)."""
     d, L = cfg.d_model, cfg.n_layers
+    H = n_heads(cfg)
+    n = model_size(mesh)
+    if n > 1:
+        refusal = train_tp_refusal(cfg, n)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
+        H //= n
+    if mesh is not None:
+        start, stop = batch_rows(batch, mesh)
+        batch = stop - start
     return {
         "x_tm": torch.zeros((L, batch, d), dtype=_dtype(cfg), device=device),
         "x_cm": torch.zeros((L, batch, d), dtype=_dtype(cfg), device=device),
-        "S": torch.zeros((L, batch, n_heads(cfg), HEAD_DIM, HEAD_DIM),
+        "S": torch.zeros((L, batch, H, HEAD_DIM, HEAD_DIM),
                          dtype=torch.float32, device=device),
     }
 
@@ -315,23 +346,37 @@ def state_specs(cfg) -> dict:
 
 
 def decode_step(params: dict, cfg, token: torch.Tensor, state: dict,
-                pos=None) -> tuple:
+                pos=None, mesh=None) -> tuple:
     """token: (b, 1) int. Returns (logits (b, 1, V_padded), state).
 
     The state is updated in place, layer by layer (JAX returns a new
     state); the returned state is the same dict. ``pos`` is unused, as in
-    the reference."""
-    h = params["embed"][token[:, 0]]                              # (b, d)
+    the reference. On a `mesh` the tokens, the state
+    (``init_state(mesh=...)``) and the logits are this rank's rows; where
+    ``model`` holds n > 1 ranks, `params` are this rank's shards under
+    ``param_specs`` (every split one checked, :func:`check_train_shards`):
+    the vocab-parallel embedding, each layer on the rank's heads (see the
+    module docstring), the head's columns gathered over ``model``. On a
+    ``model`` axis of one rank this is the meshless step."""
+    n = model_size(mesh)
+    tp = mesh if n > 1 else None
+    if tp is not None:
+        check_train_shards(params, cfg, n)
+    h = _embed(params["embed"], token[:, 0], cfg, tp)             # (b, d)
     blocks = params["blocks"]
     for i in range(state["S"].shape[0]):
         bp = _index(blocks, i)
         hn = rmsnorm(h, bp["tm_norm"], cfg.norm_eps)
-        o, S = _time_mix_step(bp, cfg, hn, state["x_tm"][i], state["S"][i])
+        o, S = _time_mix_step(bp, cfg, hn, state["x_tm"][i], state["S"][i],
+                              tp)
         h = h + o
         hn2 = rmsnorm(h, bp["cm_norm"], cfg.norm_eps)
-        h = h + _channel_mix_step(bp, hn2, state["x_cm"][i])
+        h = h + _channel_mix_step(bp, hn2, state["x_cm"][i], matmul, tp)
         state["x_tm"][i] = hn
         state["x_cm"][i] = hn2
         state["S"][i] = S
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return matmul(h, params["lm_head"])[:, None, :], state
+    logits = matmul(h, params["lm_head"])
+    if tp is not None:
+        logits = all_gather(logits, tp, TP_AXIS, -1)
+    return logits[:, None, :], state

@@ -21,6 +21,15 @@ computes on the same shards, through the autograd collectives of
 ``distributed/sharding.py``: a vocab-parallel embedding, each rank's
 query heads, its columns of w_gate and w_up and rows of w_down, and its
 columns of the head, the logits gathered over ``model``.
+
+The MoE family takes the same paths: its attention, embedding and head
+as the dense family's, its experts split over ``model`` by
+``moe.moe_param_specs`` (experts where the axis divides them, else each
+expert's FFN width) and its routing groups formed over the whole batch
+where the batch axes split the rows (``models/moe.py``). So its decode
+step and its forward also take a mesh whose ``model`` axis holds one
+rank (a ``data``-only mesh, or the batch axes' sub-mesh that the train
+step passes with whole parameters), for the groups alone.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from ..distributed.sharding import (BATCH_AXES, TP_AXIS, all_gather,
                                     all_reduce_sum, batch_rows,
                                     constrain_entries, copy_to_model,
+                                    data_rows,
                                     gather_from_model, local,
                                     mesh_axis_sizes, model_rank, model_size,
                                     padded_heads, padded_vocab, placements,
@@ -144,13 +154,14 @@ def param_specs(cfg, fsdp=None, tp: int = 16) -> dict:
 def _block_forward(cfg, h: torch.Tensor, bp: dict,
                    positions: torch.Tensor, mesh=None) -> torch.Tensor:
     """One block of ``forward``; with a tensor-parallel `mesh` (see
-    :func:`forward`) on this rank's shards of `bp`."""
+    :func:`forward`) on this rank's shards of `bp`. The MoE FFN takes any
+    mesh, for its routing groups (``moe.moe_ffn``)."""
     h = h + self_attention(bp["attn"], rmsnorm(h, bp["attn_norm"],
                                                cfg.norm_eps), cfg, positions,
                            mesh)
     x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
-        f = moe_lib.moe_ffn(bp["moe"], x, cfg, mm=torch.matmul)
+        f = moe_lib.moe_ffn(bp["moe"], x, cfg, mm=torch.matmul, mesh=mesh)
     else:
         f = reduce_from_model(swiglu(bp["ffn"], copy_to_model(x, mesh),
                                      torch.matmul), mesh)
@@ -163,8 +174,8 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     block is recomputed in the backward (the reference's jax.checkpoint of
     its block).
 
-    With a `mesh` whose ``model`` axis holds n > 1 ranks (the dense
-    family's training forward on shards), `params`
+    With a `mesh` whose ``model`` axis holds n > 1 ranks (the training
+    forward on shards), `params`
     are this rank's shards under ``param_specs(tp=n)`` with the batch axes
     gathered (``sharding.gather_batch``), the query heads padded by
     ``init(tp=n)``, and every split one checked (:func:`check_train_shards`):
@@ -173,7 +184,9 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     over ``model`` (``gather_from_model``, whose backward is this rank's
     slice: every rank computes the same loss from them). Each rank's
     gradients are then its shards. On a ``model`` axis of one rank, or
-    without a mesh, this is the single-process forward."""
+    without a mesh, this is the single-process forward, but for the MoE
+    FFN's routing groups, which span the rows of the mesh's batch axes
+    (`tokens` this rank's rows of them)."""
     n = model_size(mesh)
     tp = mesh if n > 1 else None
     if tp is not None:
@@ -183,7 +196,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     for bp in _layers(params["blocks"]):
-        h = remat_call(remat, _block_forward, cfg, h, bp, positions, tp)
+        h = remat_call(remat, _block_forward, cfg, h, bp, positions, mesh)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = torch.matmul(copy_to_model(h, tp), params["lm_head"])
     return gather_from_model(logits, tp, -1)
@@ -191,12 +204,13 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
 
 def train_tp_refusal(cfg, n: int) -> str | None:
     """Why `cfg` cannot compute on the shards of a ``model`` axis of n
-    ranks, or None where it can: the MoE family cannot yet, and n must
-    divide d_ff and the padded vocab (``init(tp=n)`` pads the query heads;
-    KV heads that do not split are held whole on every rank)."""
-    if cfg.moe:
-        return (f"{cfg.name}: the MoE family's experts do not split over "
-                f"the model axis yet (ROADMAP Queue 1 item 4c)")
+    ranks, or None where it can: n must divide d_ff and the padded vocab
+    (``init(tp=n)`` pads the query heads; KV heads that do not split are
+    held whole on every rank), and in the MoE family the experts or their
+    FFN width (``moe.tp_refusal``)."""
+    refusal = moe_lib.tp_refusal(cfg, n) if cfg.moe else None
+    if refusal is not None:
+        return refusal
     for what, size in (("d_ff", cfg.d_ff),
                        ("padded vocab", padded_vocab(cfg.vocab))):
         if size % n:
@@ -208,19 +222,21 @@ def train_tp_refusal(cfg, n: int) -> str | None:
 def check_train_shards(params: dict, cfg, n: int) -> None:
     """Raise unless `params` hold this rank's shards of every leaf the
     training forward on a ``model`` axis of n ranks splits: the query
-    heads (:func:`_check_tp_shards`), the columns of w_gate and of the
-    head and the embedding's vocab rows, 1/n of each; where `cfg` cannot
-    compute on shards (:func:`train_tp_refusal`), raise that."""
+    heads and the experts (:func:`_check_tp_shards`), the columns of
+    w_gate (the dense family's) and of the head and the embedding's vocab
+    rows, 1/n of each; where `cfg` cannot compute on shards
+    (:func:`train_tp_refusal`), raise that."""
     refusal = train_tp_refusal(cfg, n)
     if refusal is not None:
         raise NotImplementedError(refusal)
     _check_tp_shards(params, cfg, n)
     V = padded_vocab(cfg.vocab)
-    got = {"ffn/w_gate": params["blocks"]["ffn"]["w_gate"].shape[-1],
-           "embed": params["embed"].shape[0],
+    got = {"embed": params["embed"].shape[0],
            "lm_head": params["lm_head"].shape[-1]}
-    want = {"ffn/w_gate": cfg.d_ff // n, "embed": V // n,
-            "lm_head": V // n}
+    want = {"embed": V // n, "lm_head": V // n}
+    if not cfg.moe:
+        got["ffn/w_gate"] = params["blocks"]["ffn"]["w_gate"].shape[-1]
+        want["ffn/w_gate"] = cfg.d_ff // n
     if got != want:
         raise ValueError(f"{cfg.name}: split leaves hold {got} on this "
                          f"rank; a model axis of {n} ranks needs {want}")
@@ -264,13 +280,20 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     (``sharding.batch_rows``) and, where ``model`` holds n > 1 ranks that
     divide S, its S / n slots. A cache split by sequence is a DTensor
     (its storage the shard, its shape the whole cache's), so that the step
-    knows the whole S; any other is the plain local tensor."""
+    knows the whole S; any other is the plain local tensor. The MoE
+    family's routing groups take the rows as split over every batch axis
+    (``moe.route``), so there the batch must divide over their ranks."""
     hd = cfg.resolved_head_dim
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, hd)
     if mesh is None:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    ranks = data_rows(mesh)[1]
+    if cfg.moe and batch % ranks:
+        raise ValueError(f"{cfg.name}: a batch of {batch} rows does not "
+                         f"split over the {ranks} ranks of the batch axes, "
+                         f"which the MoE family's routing groups span")
     start, stop = batch_rows(batch, mesh)
     n = model_size(mesh)
     split = n > 1 and S % n == 0
@@ -297,15 +320,16 @@ def block_decode(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
                  vc: torch.Tensor, pos: int, slot: int, mesh=None,
                  seq_len: int | None = None) -> torch.Tensor:
     """One layer of the decode step: h (b, 1, d) -> (b, 1, d); writes the
-    new token's K/V into this layer's caches kc/vc at `slot`. With a
-    tensor-parallel `mesh` (see :func:`decode_step`), `bp` holds this
-    rank's shards and kc/vc its shards of caches of `seq_len` slots."""
+    new token's K/V into this layer's caches kc/vc at `slot`. On a
+    `mesh` (see :func:`decode_step`) h holds this rank's rows; where its
+    ``model`` axis holds several ranks `bp` holds this rank's shards and
+    kc/vc its shards of caches of `seq_len` slots."""
     x = rmsnorm(h, bp["attn_norm"], cfg.norm_eps)
     h = h + decode_attention(bp["attn"], x, cfg, kc, vc, pos, slot, mesh,
                              seq_len)
     x = rmsnorm(h, bp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
-        f = moe_lib.moe_ffn(bp["moe"], x, cfg)
+        f = moe_lib.moe_ffn(bp["moe"], x, cfg, mesh=mesh)
     else:
         f = swiglu(bp["ffn"], x)
         if mesh is not None and bp["ffn"]["w_gate"].shape[1] < cfg.d_ff:
@@ -324,29 +348,28 @@ def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
 
     On a `mesh` the tokens, the cache (``init_cache(mesh=...)``) and the
     logits are this rank's rows. Where ``model`` holds one rank the step is
-    the meshless one. Where it holds n > 1 (the dense family only),
-    `params` are this rank's shards under ``param_specs(tp=n)`` (query
-    heads padded by ``init(tp=n)``): the embedding looks up the tokens in
-    its vocab rows, zeroes the others and sums over ``model`` (one term is
-    non-zero, so the sum is exact); each layer runs tensor-parallel
-    (``block_decode``); the head's columns give this rank's logits, which
-    are gathered over ``model``, so a greedy sampler sees every column."""
+    the meshless one (the MoE FFN's routing groups apart, which span the
+    batch axes' rows: ``moe.moe_ffn``). Where it holds n > 1, `params` are
+    this rank's shards under ``param_specs(tp=n)`` (query heads padded by
+    ``init(tp=n)``): the embedding looks up the tokens in its vocab rows,
+    zeroes the others and sums over ``model`` (one term is non-zero, so
+    the sum is exact); each layer runs tensor-parallel (``block_decode``),
+    the MoE family's experts on their shards; the head's columns give this
+    rank's logits, which are gathered over ``model``, so a greedy sampler
+    sees every column."""
     n = model_size(mesh)
-    if n > 1 and cfg.moe:
-        raise NotImplementedError(f"{cfg.name}: the MoE family does not "
-                                  f"decode on a model axis of {n} ranks")
     tp = mesh if n > 1 else None
+    if tp is not None:
+        _check_tp_shards(params, cfg, n)
     kc_all, vc_all = local(cache["k"]), local(cache["v"])
     L = kc_all.shape[0]
     S = cache["k"].shape[3]
     slot = pos % S if cfg.sliding_window else pos
-    if tp is not None:
-        _check_tp_shards(params, cfg, n)
     h = _embed(params["embed"], token, cfg, tp)
     blocks = params["blocks"]
     for i in range(L):
         h = block_decode(cfg, h, _index(blocks, i), kc_all[i], vc_all[i],
-                         pos, slot, tp, S)
+                         pos, slot, mesh, S)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = matmul(h, params["lm_head"])
     if tp is not None and logits.shape[-1] < padded_vocab(cfg.vocab):
@@ -371,7 +394,11 @@ def _embed(embed: torch.Tensor, token: torch.Tensor, cfg,
 
 def _check_tp_shards(params: dict, cfg, n: int) -> None:
     """Raise unless the query projection is split by whole heads over the n
-    ranks of ``model``, as ``init(tp=n)`` and ``param_specs`` make it."""
+    ranks of ``model``, as ``init(tp=n)`` and ``param_specs`` make it, and
+    the MoE family's expert leaves by ``moe.moe_param_specs`` (refused
+    where neither the experts nor their FFN width split)."""
+    if cfg.moe:
+        moe_lib.check_shards(params["blocks"]["moe"], cfg, n)
     hd = cfg.resolved_head_dim
     cols = params["blocks"]["attn"]["wq"].shape[-1]
     if cols * n != padded_heads(cfg.n_heads, n) * hd:

@@ -27,10 +27,13 @@ backward depends on the ``model`` axis:
   comes out as this rank's shard, which is reduced over the batch axes
   only.
 * Otherwise every parameter is gathered whole (``sharding.gather``) and
-  ``loss_fn(params, batch)`` does the single-process step's math on
-  plain tensors; each gradient is reduced over the batch axes and sliced
-  to the rank's ``model`` shard. On a ``model`` axis of one rank, or
-  with no mesh, this is the single-process step, call for call.
+  the loss does the single-process step's math on plain tensors; each
+  gradient is reduced over the batch axes and sliced to the rank's
+  ``model`` shard. Where the batch axes hold several ranks the loss also
+  gets their sub-mesh (``loss_fn(params, batch, sharding.batch_mesh(...))``),
+  for work that spans the rows of several ranks (the MoE family's
+  routing groups; the other families' forwards ignore it). On a 1x1 mesh,
+  or with no mesh, this is the single-process step, call for call.
 
 Either way each microbatch's gradient is reduced into the parameters'
 placements (``sharding.reduce_into``: a reduce-scatter over the batch
@@ -48,9 +51,10 @@ from typing import Callable, NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..distributed.sharding import (BATCH_AXES, active_mesh, constrain_like,
-                                    data_rows, gather, gather_batch, like,
-                                    model_size, reduce_into, sum_over)
+from ..distributed.sharding import (BATCH_AXES, active_mesh, batch_mesh,
+                                    constrain_like, data_rows, gather,
+                                    gather_batch, like, model_size,
+                                    reduce_into, sum_over)
 from .optimizer import (AdamWState, _leaves, _unflatten, adamw_init,
                         adamw_update)
 
@@ -99,8 +103,10 @@ def accumulate(loss_fn: Callable, params: dict, batch: dict,
     over the microbatches and the batch axes' ranks (fp32 where it was
     reduced), and the loss averaged over those ranks too. With `shards`
     and a ``model`` axis of several ranks, the forward computes on this
-    rank's ``model`` shards (``loss_fn(params, batch, mesh)``; see the
-    module docstring)."""
+    rank's ``model`` shards (``loss_fn(params, batch, mesh)``); otherwise,
+    where the batch axes hold several ranks, it gets their sub-mesh
+    (``loss_fn(params, batch, batch_mesh(mesh))``; see the module
+    docstring)."""
     if microbatches < 1:
         raise ValueError(f"microbatches {microbatches} < 1")
     b = next(iter(batch.values())).shape[0]
@@ -118,7 +124,9 @@ def accumulate(loss_fn: Callable, params: dict, batch: dict,
     on_shards = shards and model_size(mesh) > 1
     full = _unflatten(params, [(gather_batch if on_shards else gather)(p)
                                for p in refs])
-    extra = (mesh,) if on_shards else ()
+    row_mesh = batch_mesh(mesh)
+    extra = (mesh,) if on_shards else () if row_mesh is None \
+        else (row_mesh,)
     acc, loss_sum = None, None
     for i in range(microbatches):
         lo = i * rows + index * per

@@ -5,13 +5,14 @@ and, on rank 0, saves what the test compares. No JAX here: the workers
 import only the port."""
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch.configs.base import reduced
+from repro_torch.configs.base import MoEConfig, reduced
 from repro_torch.configs.registry_configs import ALL_ARCHS
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import sharding
@@ -19,7 +20,7 @@ from repro_torch.distributed.elastic import elastic_resume
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.launch.mesh import make_mesh, parse_mesh
-from repro_torch.models import layers, rwkv6
+from repro_torch.models import layers, moe, rwkv6
 from repro_torch.models.registry import get_adapter
 from repro_torch.train import optimizer
 from repro_torch.train.optimizer import _leaves, adamw_init, adamw_update
@@ -32,9 +33,13 @@ SEQ, BATCH, MICRO, STEPS = 16, 8, 2, 3
 # Training cases beside the reduced archs: (arch, overrides of reduced()).
 # rwkv6-3b at d_model 128 has 2 heads, which split over a model axis of 2
 # (at 64 it has 1, and the step gathers its parameters whole); qwen2-7b
-# with one KV head holds wk and wv whole on every rank of that axis.
+# with one KV head holds wk and wv whole on every rank of that axis;
+# granite-moe-3b with 3 experts, which do not split over 2, splits each
+# expert's FFN width instead (reduced granite's 8 split by expert).
 CASES = {"rwkv6-3b-d128": ("rwkv6-3b", {"d_model": 128}),
-         "qwen2-7b-kv1": ("qwen2-7b", {"n_kv_heads": 1})}
+         "qwen2-7b-kv1": ("qwen2-7b", {"n_kv_heads": 1}),
+         "granite-moe-e3": ("granite-moe-3b-a800m", {"moe": MoEConfig(
+             n_experts=3, top_k=2, expert_d_ff=64)})}
 
 
 def fp32_cfg(arch):
@@ -68,6 +73,27 @@ def _seen(ad, mesh, record: dict):
     return loss_fn
 
 
+@contextlib.contextmanager
+def _gates(record: list):
+    """``moe.route`` recording, for each call, the experts chosen for this
+    rank's own tokens (top-k indices, one row a token)."""
+    route = moe.route
+
+    def recorded(*args, **kwargs):
+        r = route(*args, **kwargs)
+        idx = r.gate_idx.reshape(-1, r.gate_idx.shape[-1])
+        if r.own is not None:
+            idx = idx[r.own.reshape(-1)]
+        record.append(idx.clone())
+        return r
+
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
 def _scan_heads(record: dict):
     """rwkv6's rwkv_scan, recording each call's head count."""
     scan = rwkv6.rwkv_scan
@@ -85,9 +111,10 @@ def meshes(inputs_path, plan):
     driver's loss (on model shards where the family computes on them);
     the driver's mesh axes and TP, the number of parameter leaves split
     over some mesh axis, whether the step computed on model shards, and
-    from every rank the shapes of the leaves its forward saw and the head
-    count of each rwkv_scan call; and the driver's losses over STEPS steps
-    from its own seeded init."""
+    from every rank the shapes of the leaves its forward saw, the head
+    count of each rwkv_scan call, its place on the batch axes and the
+    experts each MoE layer chose for its own tokens; and the driver's
+    losses over STEPS steps from its own seeded init."""
     inputs = torch.load(inputs_path, weights_only=False)
     out = {}
     for text, archs in plan.items():
@@ -101,14 +128,15 @@ def meshes(inputs_path, plan):
                 params, ad.param_specs("data", tp), mesh)
             split = _split_leaves(t for _, t in _leaves(placed))
             shards = ad.supports_train_tp(sharding.model_size(mesh))
-            record = {}
+            record = {"data": sharding.data_rows(mesh)[0], "gates": []}
             scan = rwkv6.rwkv_scan
             rwkv6.rwkv_scan = _scan_heads(record)
             try:
-                loss, grads = accumulate(
-                    _seen(ad, mesh, record), placed,
-                    {k: torch.from_numpy(v) for k, v in batch.items()},
-                    MICRO, shards)
+                with _gates(record["gates"]):
+                    loss, grads = accumulate(
+                        _seen(ad, mesh, record), placed,
+                        {k: torch.from_numpy(v) for k, v in batch.items()},
+                        MICRO, shards)
             finally:
                 rwkv6.rwkv_scan = scan
             ranks = [None] * dist.get_world_size()
@@ -231,11 +259,31 @@ def resume(ckpt_dir, witness_path, n_devices):
 
 
 # The serving checks: the reference driver's requests at the CPU parity
-# tests' size (tests/test_torch_serve.py).
+# tests' size (tests/test_torch_serve.py); the MoE family at the driver's
+# 4 slots, where its routing drops assignments that 2 slots never would.
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 2, 8, 128
+MOE_SERVE_SLOTS = 4
 # The families that serve on the data axis only.
-DATA_ONLY_ARCHS = ("rwkv6-3b", "granite-moe-3b-a800m", "zamba2-1.2b",
-                   "whisper-small", "llama-3.2-vision-90b")
+DATA_ONLY_ARCHS = ("zamba2-1.2b", "whisper-small", "llama-3.2-vision-90b")
+# The serve driver on a model axis of several ranks: granite serves there
+# (its code), reduced rwkv6-3b's one head does not split (the refusal).
+MODEL_AXIS_DRIVERS = ("granite-moe-3b-a800m", "rwkv6-3b")
+
+
+def serve_slots(arch) -> int:
+    return MOE_SERVE_SLOTS if fp32_cfg(arch).moe else SERVE_SLOTS
+
+
+def _driver(arch, text):
+    """The serve driver's exit code for reduced `arch` on the mesh, or the
+    refusal it raises."""
+    try:
+        return port_serve.main(
+            ["--arch", arch, "--reduced", "--device", "cpu", "--mesh", text,
+             "--requests", str(SERVE_REQUESTS), "--slots",
+             str(serve_slots(arch)), "--max-new", str(SERVE_NEW)])
+    except NotImplementedError as e:
+        return str(e)
 
 
 def _data_mesh(text):
@@ -262,11 +310,14 @@ def serve_meshes(inputs_path, mesh_texts):
     tokens of each step; the cache's max_seq): the decode steps on the
     mesh from an fp32 cache, each rank its rows, the logits gathered over
     the data axis; the local shapes of the placed parameters and of the
-    cache and the cache's whole S; the serve loop's greedy tokens on the
-    mesh (the reference driver's requests, a bf16 cache); and the serve
-    driver's exit code on the mesh (its own seeded bf16 model). On a mesh
-    whose model axis holds one rank, also each data-only family's tokens
-    served on the mesh and in one process."""
+    decode state, and the KV cache's whole S; from every rank its place on
+    the batch axes and the experts each MoE layer chose for its own
+    tokens; the serve loop's greedy tokens on the mesh (the reference
+    driver's requests, a bf16 cache); and the serve driver's exit code on
+    the mesh (its own seeded bf16 model), and on a model axis of several
+    ranks that of granite-moe-3b and rwkv6-3b's refusal. On a mesh whose
+    model axis holds one rank, also each data-only family's tokens served
+    on the mesh and in one process."""
     inputs = torch.load(inputs_path, weights_only=False)
     out = {}
     for text in mesh_texts:
@@ -281,27 +332,34 @@ def serve_meshes(inputs_path, mesh_texts):
             cache = ad.init_decode_state(b, max_seq, dtype=torch.float32,
                                          device="cpu", mesh=mesh)
             r0, r1 = sharding.batch_rows(b, mesh)
-            logits = []
-            with torch.inference_mode():
+            logits, gates = [], []
+            with torch.inference_mode(), _gates(gates):
                 for pos, tok in enumerate(tokens):
                     lg, cache = ad.decode(placed, {"tokens": tok[r0:r1]},
                                           cache, pos, mesh)
                     logits.append(sharding.all_gather(
                         lg, mesh, sharding.BATCH_AXES, 0))
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, (sharding.data_rows(mesh)[0],
+                                           gates))
             run = port_serve.serve(
                 cfg, port_serve.place_params(ad, serve_params, mesh, tp),
                 port_serve.make_requests(SERVE_REQUESTS, 16, SERVE_NEW,
                                          cfg.vocab, 0),
-                SERVE_SLOTS, SERVE_MAX_SEQ, "cpu", mesh)
+                serve_slots(arch), SERVE_MAX_SEQ, "cpu", mesh)
             res[arch] = {
                 "logits": torch.stack(logits).numpy(),
                 "local": {"/".join(p): tuple(t.shape)
                           for p, t in _leaves(placed)},
-                "cache": tuple(sharding.local(cache["k"]).shape),
-                "cache_seq": cache["k"].shape[3],
+                "state": {k: tuple(sharding.local(t).shape)
+                          for k, t in cache.items()},
+                "gates": ranks,
                 "tokens": {r.rid: r.out_tokens
                            for r in run.batcher.completed},
                 "steps": run.batcher.steps}
+            if "k" in cache:
+                res[arch].update(cache=tuple(sharding.local(cache["k"]).shape),
+                                 cache_seq=cache["k"].shape[3])
         if tp == 1:
             res["families"] = {arch: (_served(arch, mesh),
                                       _served(arch, None))
@@ -310,6 +368,9 @@ def serve_meshes(inputs_path, mesh_texts):
             ["--reduced", "--device", "cpu", "--mesh", text, "--requests",
              str(SERVE_REQUESTS), "--slots", str(SERVE_SLOTS), "--max-new",
              str(SERVE_NEW)])
+        if tp > 1:
+            res["drivers"] = {arch: _driver(arch, text)
+                              for arch in MODEL_AXIS_DRIVERS}
     return out
 
 
