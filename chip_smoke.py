@@ -135,6 +135,23 @@ GPU, from the root of a checkout:
      the single-process step and 3 bf16 steps (cut to 8 layers in the
      full run). rowstream_matmul and flash_decode_partial are timed at the
      shapes a rank launches, each beside the whole product or cache.
+   * zamba2-1.2b on model shards: served without a mesh and on a 1x1 mesh
+     (the meshless tokens at the meshless launches), then two ranks
+     spawned on the one card over gloo (32 of its 64 SSM heads a rank,
+     in_proj and the conv laid out by a rank's parts: its heads' z, x and
+     dt and all of B and C, a (2048, 4256) in_proj a block; 64 of the 128
+     slots of the shared block's KV cache): 8 fed steps at 4 slots on 1x2
+     in fp32 cut to 6 blocks (one application of the shared block), held
+     at 0.15 against the meshless run, each rank at the meshless step's
+     launches; then the train step on 1x2 in fp32 at 6 blocks against the
+     single-process step. `--only zamba2_tp` adds the bf16 fed steps at
+     all 38 blocks (reported), the bf16 serve on 1x2 and 3 bf16 train
+     steps at all 38, beside the same steps in one process (the first
+     loss held at 1e-2 relative); the full run serves at
+     FULL_RUN_ZAMBA_LAYERS blocks.
+     rowstream_matmul is timed at a rank's products (in_proj by parts,
+     out_proj, the shared block's halves, the head) beside the whole ones,
+     and flash_decode_partial over a rank's 64 of 128 slots.
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -196,7 +213,9 @@ line). The partial entry's per-launch times, at S 4096 and 32768 as one
 shard and split over 2 and 4 ranks, come with flash_decode's own timings.
 ``--only moe_tp`` builds and checks the same two kernels, then runs only
 the MoE / rwkv6 phase on model shards and its timings, its bf16 training
-at all 32 layers (no ``ok`` line).
+at all 32 layers (no ``ok`` line). ``--only zamba2_tp`` likewise runs
+only zamba2's phase on model shards at full depth, its bf16 fed steps,
+serve and training on 1x2 included, and its timings (no ``ok`` line).
 ``--baseline`` runs either on a tree whose kernel predates its redesign
 (copy this script into that tree's root): it leaves out the checks and
 plan that the redesign added and times the old kernel's device kernels
@@ -2469,6 +2488,7 @@ def zamba2_layer_phase(torch, cfg, params, requests_tokens) -> dict:
     a one-ulp change (PERF.md), so bf16 is held block by block."""
     from repro_torch.models import zamba2
     from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import block_decode
     state, tok = fed_steps(torch, get_adapter(cfg), params, requests_tokens,
                            SLOTS, MAX_SEQ)
     k, n_shared = zamba2._pattern(cfg)
@@ -2499,9 +2519,9 @@ def zamba2_layer_phase(torch, cfg, params, requests_tokens) -> dict:
                 u = i // k
                 kk, pp = ([state[n][u].clone() for n in ("k", "v")]
                           for _ in range(2))
-                hk = zamba2._shared_block_step(sp, cfg, h, *kk, 8, 8)
+                hk = block_decode(cfg, h[:, None], sp, *kk, 8, 8)[:, 0]
                 with plain_path():
-                    hp = zamba2._shared_block_step(sp, cfg, h, *pp, 8, 8)
+                    hp = block_decode(cfg, h[:, None], sp, *pp, 8, 8)[:, 0]
                 held("shared", u, hk, hp)
                 h = hk
     print(f"[logits] zamba2-1.2b bf16: each block of the step at pos 8 on "
@@ -4049,26 +4069,35 @@ def _tp_model_runs(torch, ref: dict, mesh, whole: bool = True,
     return out
 
 
-def moe_train_run(torch, mesh, layers: int) -> dict:
-    """granite-moe-3b's train step on this rank's model shards: the fp32
-    check at MOE_TRAIN_FP32_LAYERS layers (tp_fp32_check), then TP_STEPS
-    bf16 steps of the driver's step at `layers` layers, each step's loss,
-    host ms and the parameter bytes its forward saw, and the peak
-    memory."""
+def tp_train_run(torch, mesh, name: str, fp32_layers: int,
+                 layers: int | None) -> dict:
+    """`name`'s train step on this rank's model shards: the fp32 check at
+    `fp32_layers` layers (tp_fp32_check), then, unless `layers` is None,
+    the bf16 steps at `layers` layers (bf16_train_run)."""
     from repro_torch.configs.registry_configs import ALL_ARCHS
-    from repro_torch.distributed.sharding import use_mesh
+    base = ALL_ARCHS[name]
+    out = {"fp32": tp_fp32_check(torch, mesh, dataclasses.replace(
+        base, dtype="float32", n_layers=fp32_layers))}
+    torch.cuda.empty_cache()
+    if layers is not None:
+        out.update(bf16_train_run(torch, mesh, dataclasses.replace(
+            base, n_layers=layers)))
+    return out
+
+
+def bf16_train_run(torch, mesh, cfg) -> dict:
+    """TP_STEPS steps of the driver's step for `cfg` from SEED's
+    parameters, on this rank's shards of `mesh`, or in one process where
+    `mesh` is None: the path taken, each step's loss and host ms, the
+    parameter bytes its forward saw, and the peak memory."""
+    from repro_torch.distributed.sharding import model_size, use_mesh
     from repro_torch.launch import train as port_train
     from repro_torch.models.registry import get_adapter, train_tp_path
-    gcfg = ALL_ARCHS[GRANITE]
-    out = {"fp32": tp_fp32_check(torch, mesh, dataclasses.replace(
-        gcfg, dtype="float32", n_layers=MOE_TRAIN_FP32_LAYERS))}
-    torch.cuda.empty_cache()
+    n = model_size(mesh)
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(gcfg, n_layers=layers)
     ad = get_adapter(cfg)
-    out["path"] = train_tp_path(cfg, MOE_TP_RANKS)
-    step = port_train.make_step(ad, mesh, MOE_TP_RANKS, TRAIN_MICRO,
-                                TRAIN_LR)
+    out = {"path": train_tp_path(cfg, n)}
+    step = port_train.make_step(ad, mesh, n, TRAIN_MICRO, TRAIN_LR)
     seen, loss = [], ad.loss
 
     def seen_loss(params, batch, remat=False, mesh=None):
@@ -4080,8 +4109,7 @@ def moe_train_run(torch, mesh, layers: int) -> dict:
     losses, step_ms = [], []
     try:
         with use_mesh(mesh):
-            state = port_train.init_state(ad, mesh, MOE_TP_RANKS, SEED,
-                                          "cuda")
+            state = port_train.init_state(ad, mesh, n, SEED, "cuda")
             whole = sum(p.numel() * p.element_size()
                         for p in _tensors(state.params))
             for i in range(TP_STEPS):
@@ -4094,7 +4122,7 @@ def moe_train_run(torch, mesh, layers: int) -> dict:
     finally:
         ad.loss = loss
     del state
-    out.update(layers=layers, losses=losses, step_ms=step_ms,
+    out.update(layers=cfg.n_layers, losses=losses, step_ms=step_ms,
                seen_bytes=seen[0], whole_bytes=whole,
                peak_bytes=torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
@@ -4114,7 +4142,8 @@ def moe_tp_rank_run(torch, tmp: Path) -> dict:
                                                "serve_on_mesh"])}
         if name == PHI:
             out[name]["2x1"] = _tp_model_runs(torch, ref, two_by_one, False)
-    out["train"] = moe_train_run(torch, one_by_two, refs["train_layers"])
+    out["train"] = tp_train_run(torch, one_by_two, GRANITE,
+                                MOE_TRAIN_FP32_LAYERS, refs["train_layers"])
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
@@ -4182,19 +4211,20 @@ def moe_tp_phase(torch, train_layers: int, serves=(GRANITE, PHI,
                                                      for o in outs],
                                    refs["serves"][name])
             for mesh in outs[0][name]}
-    res["train"] = moe_train_verdict([o["train"] for o in outs])
+    res["train"] = tp_train_verdict([o["train"] for o in outs], GRANITE,
+                                    "moe_tp")
     print(f"[moe_tp] references {ref_s:.1f} s; ranks {seconds:.1f} s from "
           f"spawn to join; peak bytes by rank {res['peak_bytes']}")
     return res
 
 
 def tp_model_verdict(name: str, mesh: str, ref: dict, outs: list,
-                     sv: dict) -> dict:
-    """Check and print one model's runs on `mesh` against its reference:
-    equal logits on every rank, fp32 logits within LOGITS_ATOL, no
-    routing disagreement between the ranks of a model axis, on 2x1 the
-    meshless run's dropped assignments a step; the bf16 logits, routing
-    flips and served tokens that differ reported."""
+                     sv: dict, tag: str = "moe_tp") -> dict:
+    """Check and print (lines tagged `tag`) one model's runs on `mesh`
+    against its reference: equal logits on every rank, fp32 logits within
+    LOGITS_ATOL, no routing disagreement between the ranks of a model
+    axis, on 2x1 the meshless run's dropped assignments a step; the bf16
+    logits, routing flips and served tokens that differ reported."""
     import torch
     res = {}
     for dt in ("float32", "bfloat16"):
@@ -4249,7 +4279,7 @@ def tp_model_verdict(name: str, mesh: str, ref: dict, outs: list,
             f"{sum(r['meshless_dropped_by_step'])} in all)")
         layers = ref["fp32_layers"] if dt == "float32" \
             else ref["cfg"].n_layers
-        print(f"[moe_tp] {name} {dt} at {layers} layers on {mesh} (ranks "
+        print(f"[{tag}] {name} {dt} at {layers} layers on {mesh} (ranks "
               f"sharing the card over gloo), {steps} fed steps at "
               f"{SLOTS} slots: max |mesh - meshless| logits {diff!r} "
               f"({'held at ' + str(LOGITS_ATOL) if dt == 'float32' or mesh == '2x1' else 'reported only'}; "
@@ -4270,7 +4300,7 @@ def tp_model_verdict(name: str, mesh: str, ref: dict, outs: list,
             tokens_total=sum(map(len, sv["tokens"].values())),
             counts=[o["serve"]["counts"] for o in outs],
             meshless_median_step_ms=sv["median_step_ms"])
-        print(f"[moe_tp] {name} bf16 served on {mesh}: {served['steps']} "
+        print(f"[{tag}] {name} bf16 served on {mesh}: {served['steps']} "
               f"steps, {differ} of {res['serve']['tokens_total']} greedy "
               f"tokens differ from the meshless serve; step median "
               f"{served['median_step_ms']!r} ms (meshless "
@@ -4280,12 +4310,14 @@ def tp_model_verdict(name: str, mesh: str, ref: dict, outs: list,
     return res
 
 
-def moe_train_verdict(parts: list) -> dict:
-    """Check and print granite-moe-3b's train step on 1x2: the fp32 step
-    by tp_fp32_verdict's rules; the bf16 steps' finite losses, equal on
-    every rank."""
+def tp_train_verdict(parts: list, name: str, tag: str) -> dict:
+    """Check and print (lines tagged `tag`) `name`'s train step on 1x2:
+    the fp32 step by tp_fp32_verdict's rules; the bf16 steps' finite
+    losses, equal on every rank, where they ran."""
     fp32 = tp_fp32_verdict([p["fp32"] for p in parts])
     f = parts[0]
+    if "losses" not in f:
+        return {"fp32": fp32}
     for r, p in enumerate(parts):
         check(p["path"][0], f"rank {r}: {p['path'][1]}")
         check(all(math.isfinite(x) for x in p["losses"])
@@ -4297,8 +4329,8 @@ def moe_train_verdict(parts: list) -> dict:
            "seen_bytes": [p["seen_bytes"] for p in parts],
            "whole_bytes": f["whole_bytes"],
            "peak_bytes": [p["peak_bytes"] for p in parts]}
-    print(f"[moe_tp] {f['path'][1]}")
-    print(f"[moe_tp] {GRANITE} bf16 train step on 1x{MOE_TP_RANKS} at "
+    print(f"[{tag}] {f['path'][1]}")
+    print(f"[{tag}] {name} bf16 train step on 1x{len(parts)} at "
           f"{f['layers']} layers, {TP_STEPS} steps of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches: losses "
           f"{f['losses']!r}; parameter bytes the forward saw by rank "
@@ -4338,6 +4370,188 @@ def moe_tp_kernels(torch) -> dict:
     return {"rowstream_matmul": products, "flash_decode_partial": partial}
 
 
+# zamba2 on model shards (``--only zamba2_tp``, and in the full run):
+# ZAMBA_TP_RANKS ranks spawned on the one card over gloo, as the checks
+# above. The parent serves zamba2-1.2b without a mesh and on a 1x1 mesh
+# (the meshless tokens at the meshless launches), and keeps MESH_STEPS
+# greedy steps of it (tp_reference): the tokens fed, the bf16 logits and
+# the logits in fp32 cut to ZAMBA_TP_FP32_LAYERS blocks (one application
+# of the shared block). The ranks then run the same steps on 1x2, each on
+# its 32 of the 64 SSM heads with in_proj and the conv laid out by its
+# parts (a (2048, 4256) in_proj a block) and its 64 of the 128 slots of
+# the shared block's KV cache: fp32 held at LOGITS_ATOL against the
+# meshless run, bf16 at all 38 blocks reported; every rank must launch
+# the meshless step's rowstream_matmul and flash_decode counts; the bf16
+# model serves the driver's requests on 1x2. Then the train step on 1x2:
+# fp32 at ZAMBA_TP_FP32_LAYERS blocks against the single-process step
+# (tp_fp32_check's rules) and TP_STEPS bf16 steps at all 38, which the
+# parent then runs in one process from the same seed and batches
+# (zamba2_single_train). The full run
+# keeps the 1x1 check, the fp32 fed steps and the fp32 train step at
+# FULL_RUN_ZAMBA_LAYERS blocks and leaves the bf16 runs and the serve on
+# 1x2 to `--only zamba2_tp`. ZAMBA_TP_TIMEOUT_S bounds the ranks' run.
+ZAMBA_TP_RANKS = 2
+ZAMBA_TP_FP32_LAYERS = 6
+ZAMBA_TP_TIMEOUT_S = 900
+# The first bf16 training loss on 1x2 against one process's, relative.
+ZAMBA_TP_FIRST_LOSS_RTOL = 1e-2
+
+
+def _zamba2_tp_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of the zamba2 check (a spawned process): a gloo group
+    through a FileStore, the run, its results saved for the parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        out = zamba2_tp_rank_run(torch, Path(tmp))
+        torch.save(out, Path(tmp) / f"zamba2_tp_out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def zamba2_tp_rank_run(torch, tmp: Path) -> dict:
+    """This rank's part of the zamba2 check (see ZAMBA_TP_RANKS)."""
+    from repro_torch.launch.mesh import make_mesh
+    refs = torch.load(tmp / "zamba2_tp_ref.pt", weights_only=False)
+    mesh = make_mesh((1, ZAMBA_TP_RANKS), ("data", "model"), "cuda")
+    out = {"1x2": _tp_model_runs(torch, refs["ref"], mesh, refs["whole"],
+                                 refs["whole"])}
+    out["train"] = tp_train_run(torch, mesh, ZAMBA, ZAMBA_TP_FP32_LAYERS,
+                                refs["train_layers"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def zamba2_tp_phase(torch, layers: int | None = None) -> dict:
+    """The zamba2 check (see ZAMBA_TP_RANKS): with `layers` (the full run)
+    the parent's serves at that depth and neither the bf16 runs nor the
+    serve on 1x2; without it all of them at full depth."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    t_ref = time.perf_counter()
+    cfg = ALL_ARCHS[ZAMBA]
+    whole = layers is None
+    if not whole:
+        print(f"[depth] {ZAMBA} on 1x{ZAMBA_TP_RANKS}: the 1x1 serve at "
+              f"{layers} of its {cfg.n_layers} blocks, the fp32 fed steps "
+              f"and train step at {ZAMBA_TP_FP32_LAYERS}; --only zamba2_tp "
+              f"adds the bf16 fed steps, serve and train steps at all "
+              f"{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = init_params(torch, cfg)
+    sv = serve_phase(torch, cfg, params, per_step(cfg))
+    print_serve(f"{ZAMBA} ({cfg.n_layers} blocks)", sv)
+    one = mesh_serve_phase(torch, cfg, params, sv)
+    prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                        key=lambda r: r.rid)]
+    ref = tp_reference(torch, cfg, params, prompts, ZAMBA_TP_FP32_LAYERS,
+                       MESH_STEPS)
+    del params
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_zamba2_tp_"))
+    try:
+        torch.save({"ref": ref, "whole": whole,
+                    "train_layers": cfg.n_layers if whole else None},
+                   tmp / "zamba2_tp_ref.pt")
+        seconds = _spawned(_zamba2_tp_rank, tmp, ZAMBA_TP_TIMEOUT_S,
+                           "zamba2", ZAMBA_TP_RANKS)
+        outs = [torch.load(tmp / f"zamba2_tp_out_{r}.pt",
+                           weights_only=False)
+                for r in range(ZAMBA_TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = [o["1x2"] for o in outs]
+    verdict = tp_model_verdict(ZAMBA, "1x2", ref, runs, sv, "zamba2_tp")
+    slots = MAX_SEQ // ZAMBA_TP_RANKS
+    for dt, r in verdict.items():
+        if dt == "serve":
+            continue
+        depth = ZAMBA_TP_FP32_LAYERS if dt == "float32" else cfg.n_layers
+        meshless = per_step(dataclasses.replace(cfg, n_layers=depth))
+        for rank, counts in enumerate(r["counts"]):
+            # a rank's shard of the KV cache launches flash_decode once
+            # it holds a valid slot (pos >= rank * slots)
+            steps = {"flash_decode": sum(pos >= rank * slots
+                                         for pos in range(MESH_STEPS))}
+            want = {k: n * steps.get(k, MESH_STEPS)
+                    for k, n in meshless.items()}
+            check(counts == want,
+                  f"{ZAMBA} {dt} on 1x{ZAMBA_TP_RANKS}, rank {rank}: "
+                  f"launches {counts} in {MESH_STEPS} steps; the meshless "
+                  f"step's {meshless} a step make {want}")
+    res = {"seconds": seconds, "reference_seconds": ref_s,
+           "layers": cfg.n_layers, "mesh_1x1": numbers_of_serve(one),
+           "meshless_counts": sv["counts"], "models": {"1x2": verdict},
+           "peak_bytes": [o["peak_bytes"] for o in outs],
+           "train": tp_train_verdict([o["train"] for o in outs], ZAMBA,
+                                     "zamba2_tp")}
+    if whole:
+        res["train"]["single"] = zamba2_single_train(
+            torch, cfg, res["train"]["losses"])
+    print(f"[zamba2_tp] references {ref_s:.1f} s; ranks {seconds:.1f} s "
+          f"from spawn to join; peak bytes by rank {res['peak_bytes']}")
+    return res
+
+
+def zamba2_single_train(torch, cfg, tp_losses: list) -> dict:
+    """The bf16 steps of the 1x2 run (bf16_train_run) in one process, from
+    the same parameters and batches: each loss printed beside the 1x2
+    run's `tp_losses`, the first held within ZAMBA_TP_FIRST_LOSS_RTOL (the
+    same parameters and batch; the split changes only where bf16 rounds),
+    the later ones, which follow AdamW's steps through bf16 rounding,
+    reported."""
+    single = bf16_train_run(torch, None, cfg)
+    losses = single["losses"]
+    check(all(math.isfinite(x) for x in losses),
+          f"{ZAMBA} bf16 single-process losses {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(tp_losses, losses)]
+    check(rel[0] <= ZAMBA_TP_FIRST_LOSS_RTOL,
+          f"{ZAMBA} bf16 first loss on 1x{ZAMBA_TP_RANKS} {tp_losses[0]} "
+          f"against {losses[0]} in one process: {rel[0]} relative (held at "
+          f"{ZAMBA_TP_FIRST_LOSS_RTOL})")
+    print(f"[zamba2_tp] {ZAMBA} bf16 train steps at {cfg.n_layers} blocks "
+          f"in one process: losses {losses!r} against {tp_losses!r} on "
+          f"1x{ZAMBA_TP_RANKS}, relative differences {rel!r} (the first "
+          f"held at {ZAMBA_TP_FIRST_LOSS_RTOL}, the rest reported); step ms "
+          f"{single['step_ms']!r}; peak memory {single['peak_bytes']} bytes")
+    return {k: single[k] for k in ("losses", "step_ms", "peak_bytes")} \
+        | {"rel": rel}
+
+
+def zamba2_tp_kernels(torch) -> dict:
+    """rowstream_matmul at the products a rank of 1x2 launches in a
+    zamba2-1.2b decode step (in_proj by parts, out_proj, the shared
+    block's halves, the head), each beside the whole product, and
+    flash_decode_partial over a rank's half of the serve cache of the
+    shared block's applications beside the whole one."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.distributed.sharding import padded_vocab
+    from repro_torch.models import zamba2
+    n = ZAMBA_TP_RANKS
+    c = ALL_ARCHS[ZAMBA]
+    d, ff, V = c.d_model, c.d_ff, padded_vocab(c.vocab)
+    q = c.n_heads * c.resolved_head_dim
+    kv = c.n_kv_heads * c.resolved_head_dim
+    din = zamba2.inner_dim(c)
+    widths = zamba2._part_widths(c, n)
+    shapes = [((d, widths["in_proj"]), (d, zamba2._in_width(c))),
+              ((din // n, d), (din, d)), ((d, q // n), (d, q)),
+              ((d, kv // n), (d, kv)), ((q // n, d), (q, d)),
+              ((d, ff // n), (d, ff)), ((ff // n, d), (ff, d)),
+              ((d, V // n), (d, V))]
+    shapes = list(dict.fromkeys(s for pair in shapes for s in pair))
+    products = rowstream_products(torch, shapes)
+    _, n_shared = zamba2._pattern(c)
+    attn = dataclasses.replace(c, n_layers=n_shared)
+    partial = partial_timings(torch, attn, (MAX_SEQ,), (1, n))
+    return {"rowstream_matmul": products, "flash_decode_partial": partial}
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
@@ -4345,7 +4559,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
                                        "mllama", "train", "train_tp",
-                                       "mesh", "moe_tp"],
+                                       "mesh", "moe_tp", "zamba2_tp"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -4381,7 +4595,7 @@ def main(argv=None) -> int:
         names = build.KERNELS
     elif args.only in ("rwkv_scan", "train", "train_tp") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
-    elif args.only in ("mesh", "moe_tp"):
+    elif args.only in ("mesh", "moe_tp", "zamba2_tp"):
         names = ("flash_decode", "rowstream_matmul")
     else:
         names = (args.only,)
@@ -4452,6 +4666,15 @@ def main(argv=None) -> int:
         mt["kernels"] = moe_tp_kernels(torch)
         print(json.dumps({"moe_tp": dict(mt, partial_checks=partial,
                                          max_abs_err=errs)}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
+        print(card)
+        return 0
+    if args.only == "zamba2_tp":
+        errs["rowstream_matmul"] = check_rowstream(torch, dev)
+        zt = zamba2_tp_phase(torch)
+        zt["kernels"] = zamba2_tp_kernels(torch)
+        print(json.dumps({"zamba2_tp": dict(zt, partial_checks=partial,
+                                            max_abs_err=errs)}))
         print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
@@ -4573,6 +4796,8 @@ def main(argv=None) -> int:
     moe_tp = moe_tp_phase(torch, FULL_RUN_MOE_TRAIN_LAYERS,
                           FULL_RUN_MOE_TP_SERVES)
     lap("the MoE family and rwkv6-3b on 1x2 and 2x1")
+    zamba_tp = zamba2_tp_phase(torch, FULL_RUN_ZAMBA_LAYERS)
+    lap("zamba2-1.2b on 1x2")
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -4627,6 +4852,7 @@ def main(argv=None) -> int:
     print(f"[run] the training phases took {train_s:.0f} s")
     lap("training profiled, 1x2 kernels timed")
     moe_tp["kernels"] = moe_tp_kernels(torch)
+    zamba_tp["kernels"] = zamba2_tp_kernels(torch)
     lap("rowstream_matmul and flash_decode_partial on a rank's shards")
 
     # qwen2-7b and granite again, from the same seed, for their profiled
@@ -4710,6 +4936,12 @@ def main(argv=None) -> int:
                         = c
             for rank, c in enumerate(r.get("serve", {}).get("counts", [])):
                 paths[f"{name} serve on {mesh}, rank {rank}"] = c
+    paths[f"{ZAMBA} serve on a 1x1 mesh"] = \
+        zamba_tp["mesh_1x1"]["mesh_1x1"]["counts"]
+    paths[f"{ZAMBA} serve before its mesh runs"] = zamba_tp["meshless_counts"]
+    for dt, r in zamba_tp["models"]["1x2"].items():
+        for rank, c in enumerate(r.get("counts", [])):
+            paths[f"{ZAMBA} {dt} fed steps on 1x2, rank {rank}"] = c
     # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
     # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
@@ -4732,6 +4964,8 @@ def main(argv=None) -> int:
             "launches_by_path": {p: c[name] for p, c in paths.items()}}
         if name == "rowstream_matmul":
             entry["moe_tp_shards"] = moe_tp["kernels"]["rowstream_matmul"]
+            entry["zamba2_tp_shards"] = \
+                zamba_tp["kernels"]["rowstream_matmul"]
             entry["on_rwkv6_step"] = works["rowstream_matmul on rwkv6-3b"]
             entry["on_zamba2_step"] = works[
                 "rowstream_matmul on zamba2-1.2b"]
@@ -4755,6 +4989,10 @@ def main(argv=None) -> int:
             entry["mesh"] = {"1x1": numbers_of_serve(mesh_one),
                              "1x2": mesh_two}
             entry["moe_tp_partial"] = moe_tp["kernels"]["flash_decode_partial"]
+            entry["zamba2_tp_partial"] = \
+                zamba_tp["kernels"]["flash_decode_partial"]
+            entry["zamba2_tp"] = {k: v for k, v in zamba_tp.items()
+                                  if k != "kernels"}
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
             for m, cp in cross_prof.items():

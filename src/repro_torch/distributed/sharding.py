@@ -535,6 +535,7 @@ def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 #   reduce_from_model  partial    -> replicated back: identity
 #   gather_from_model  shards     -> replicated back: this rank's slice
 #   slice_for_model    replicated -> shards     back: all-gather
+#   gather_parts_for_model  shards -> per rank  back: scatter, sum, slice
 #
 # gather_from_model's backward is a slice, not a reduce-scatter: each of
 # its callers (the head's logits) feeds the gathered tensor to work that
@@ -619,6 +620,24 @@ class _SliceForModel(torch.autograd.Function):
         return (_cat(g, ctx.group, ctx.dim),) + (None,) * 4
 
 
+class _GatherParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, n, dim, index, width):
+        ctx.args = (group, rank, n, dim, index, x.shape[dim], width)
+        whole = x if x.shape[dim] == width else _cat(x, group, dim)
+        return whole.index_select(dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, rank, n, dim, index, own, width = ctx.args
+        shape = list(g.shape)
+        shape[dim] = width
+        whole = _sum(g.new_zeros(shape).index_add_(dim, index, g), group)
+        if own != width:
+            whole = _slice(whole, rank, n, dim)
+        return (whole,) + (None,) * 6
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Forward `x` itself; backward the all-reduce sum of the gradient over
     ``model``. At the input of each group of column-parallel products
@@ -658,6 +677,23 @@ def slice_for_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
         return x
     return _SliceForModel.apply(x, group, model_rank(mesh),
                                 model_size(mesh), dim % x.dim())
+
+
+def gather_parts_for_model(x: torch.Tensor, mesh, dim: int,
+                           index: torch.Tensor, width: int) -> torch.Tensor:
+    """Forward the entries `index` along `dim` of a tensor `width` long
+    there, of which `x` is this rank's equal contiguous part over
+    ``model`` (gathered first) or the whole; backward the adjoint: each
+    rank's gradient scattered into the whole, summed over ``model``, and
+    this rank's part of it (the whole where `x` is whole). For a leaf that
+    ``param_specs`` splits evenly but each rank uses by parts of its own
+    choosing (zamba2's packed in_proj and conv): where two ranks' indices
+    overlap, each one's gradient there is a partial term, summed once."""
+    group = _group(mesh, TP_AXIS)
+    if group is None:
+        return x.index_select(dim, index)
+    return _GatherParts.apply(x, group, model_rank(mesh), model_size(mesh),
+                              dim % x.dim(), index, width)
 
 
 # ---------------------------------------------------------------------------

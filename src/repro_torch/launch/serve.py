@@ -14,6 +14,8 @@ mesh.
         --mesh 1x2                  # in each of 2 ranks of a gloo group
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --arch granite-moe-3b-a800m --mesh 1x2       # likewise, 4 experts a rank
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch zamba2-1.2b --mesh 1x2           # likewise, 4 SSM heads a rank
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device``. It serves the dense and MoE families (a KV cache), rwkv6 (a
@@ -47,12 +49,15 @@ and decodes its rows of the slot array; the sampled tokens are gathered
 over the batch axes, so every rank records the same tokens. On a
 ``model`` axis of several ranks the dense and MoE families decode tensor-
 and context-parallel, the MoE's experts split over the ranks
-(``models/transformer.py``, ``models/moe.py``), and rwkv6 on its heads
-(``models/rwkv6.py``); the hybrid, VLM and audio families are refused
-there, and so is a shape that does not split (reduced rwkv6-3b's one
-head). The MoE family's routing groups span the batch axes' rows, as the
-reference's span the whole batch, so its slots must split evenly over
-them. On ``cuda`` a mesh holds one card.
+(``models/transformer.py``, ``models/moe.py``), rwkv6 on its heads
+(``models/rwkv6.py``) and zamba2 on its SSM heads, each rank's parts of
+its packed in_proj and conv laid out once by :func:`place_params`, the
+shared block's KV cache split by sequence (``models/zamba2.py``); the VLM
+and audio families are refused there, and so is a shape that does not
+split (reduced rwkv6-3b's one head). The MoE family's routing groups
+span the batch axes' rows, as the reference's span the whole batch, so
+its slots must split evenly over them. On ``cuda`` a mesh holds one
+card.
 """
 from __future__ import annotations
 
@@ -67,8 +72,7 @@ import torch.distributed as dist
 from .. import resolve_device
 from ..configs.base import reduced
 from ..configs.registry_configs import ALL_ARCHS
-from ..distributed.sharding import (BATCH_AXES, all_gather, batch_rows,
-                                    constrain_like, local_tree)
+from ..distributed.sharding import BATCH_AXES, all_gather, batch_rows
 from ..models.registry import check_decode_mesh, get_adapter
 from ..serve.batching import ContinuousBatcher, Request
 from ..serve.kv_cache import ROW_BYTES
@@ -102,9 +106,11 @@ class ServeRun:
 def place_params(adapter, params: dict, mesh, tp: int) -> dict:
     """This rank's shards of `params` (the same on every rank) under the
     family's ``param_specs(tp=tp)``, replicated over ``data``: plain
-    tensors, the parameters themselves where nothing is split."""
-    return local_tree(constrain_like(params, adapter.param_specs(None, tp),
-                                     mesh))
+    tensors, the parameters themselves where nothing is split. zamba2 on a
+    ``model`` axis of several ranks keeps its packed in_proj and conv by a
+    rank's parts instead, laid out here once
+    (``ModelAdapter.place_decode_params``)."""
+    return adapter.place_decode_params(params, mesh, tp)
 
 
 def serve(cfg, params: dict, requests: list, slots: int, max_seq: int,

@@ -28,15 +28,17 @@ recomputes each layer (block) in the backward, as the reference's
 tuples of the parameters and the decode state
 (``distributed/sharding.py`` places them on a mesh). ``init_decode_state``
 and ``decode`` take a ``mesh`` (default none: the meshless step): each
-rank decodes its rows of the batch, and the dense, MoE and SSM families
-also decode on a ``model`` axis of several ranks: the dense and MoE
-families tensor- and context-parallel, the MoE's experts split by
+rank decodes its rows of the batch, and the dense, MoE, SSM and hybrid
+families also decode on a ``model`` axis of several ranks: the dense and
+MoE families tensor- and context-parallel, the MoE's experts split by
 ``moe_param_specs`` (``models/transformer.py``, ``models/moe.py``),
-rwkv6 on its heads (``models/rwkv6.py``); the hybrid, VLM and audio
+rwkv6 on its heads (``models/rwkv6.py``), zamba2 on its SSM heads with
+its packed in_proj and conv laid out by a rank's parts
+(``place_decode_params``, ``models/zamba2.py``); the VLM and audio
 families raise there (:func:`check_decode_mesh`). ``forward`` and
 ``loss`` take a ``mesh`` too (default none): where the ``model`` axis
-holds several ranks, the dense, MoE and SSM families compute on each
-rank's shards of the parameters (the training forward on shards);
+holds several ranks, the dense, MoE, SSM and hybrid families compute on
+each rank's shards of the parameters (the training forward on shards);
 :func:`train_tp_path` says which families and shapes do, and the train
 step gathers the others' parameters whole. On a mesh whose ``model`` axis
 holds one rank the forward is the single-process one, except that the
@@ -52,7 +54,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
-from ..distributed.sharding import batch_rows, data_rows, model_size
+from ..distributed.sharding import (batch_rows, constrain_like, data_rows,
+                                    local_tree, model_size)
 from . import mllama, rwkv6, transformer, whisper, zamba2
 
 
@@ -81,17 +84,21 @@ def _tfm_decode(params, cfg, batch, state, pos, mesh=None):
                                    mesh)
 
 
+# The families that decode on a model axis of several ranks.
+TP_DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def check_decode_mesh(cfg, model: int) -> None:
-    """Raise where `cfg`'s family has no tensor-parallel decode (the
-    hybrid, VLM and audio families) and the mesh's ``model`` axis holds
-    `model` > 1 ranks. (A shape of the other families that does not split
-    is refused by their decode step, with the reason.)"""
-    if model > 1 and cfg.family not in ("dense", "moe", "ssm"):
+    """Raise where `cfg`'s family has no tensor-parallel decode (the VLM
+    and audio families) and the mesh's ``model`` axis holds `model` > 1
+    ranks. (A shape of the other families that does not split is refused
+    by their decode state, placement or step, with the reason.)"""
+    if model > 1 and cfg.family not in TP_DECODE_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family decodes on a model axis "
             f"of one rank only; a model axis of {model} waits for ROADMAP "
-            f"Queue 1 item 4c (tensor-parallel decode of the zamba2, "
-            f"whisper and mllama families)")
+            f"Queue 1 item 4c (tensor-parallel decode of the whisper and "
+            f"mllama families)")
 
 
 def _rwkv_forward(params, cfg, batch, remat, mesh=None):
@@ -100,9 +107,10 @@ def _rwkv_forward(params, cfg, batch, remat, mesh=None):
 
 def train_tp_path(cfg, model: int) -> tuple[bool, str]:
     """(whether `cfg` computes on the shards of a ``model`` axis of
-    `model` ranks, a sentence that says so): the dense and MoE families
-    and rwkv6 where the axis divides their shapes
-    (``transformer.train_tp_refusal``, ``rwkv6.train_tp_refusal``). Every
+    `model` ranks, a sentence that says so): the dense and MoE families,
+    rwkv6 and zamba2 where the axis divides their shapes
+    (``transformer.train_tp_refusal``, ``rwkv6.train_tp_refusal``,
+    ``zamba2.train_tp_refusal``). Every
     other case trains with each parameter gathered whole on every rank;
     on a ``model`` axis of one rank that is the single-process step."""
     if model <= 1:
@@ -112,6 +120,8 @@ def train_tp_path(cfg, model: int) -> tuple[bool, str]:
         refusal = transformer.train_tp_refusal(cfg, model)
     elif cfg.family == "ssm":
         refusal = rwkv6.train_tp_refusal(cfg, model)
+    elif cfg.family == "hybrid":
+        refusal = zamba2.train_tp_refusal(cfg, model)
     else:
         refusal = (f"{cfg.name}: the {cfg.family} family does not compute "
                    f"on model shards in training yet (ROADMAP Queue 1)")
@@ -130,12 +140,13 @@ def _rwkv_init_state(cfg, batch, max_seq, dtype, device, tp=1, mesh=None):
     return rwkv6.init_state(cfg, batch, device, mesh)
 
 
-def _zamba_forward(params, cfg, batch, remat):
-    return zamba2.forward(params, cfg, batch["tokens"], remat)
+def _zamba_forward(params, cfg, batch, remat, mesh=None):
+    return zamba2.forward(params, cfg, batch["tokens"], remat, mesh)
 
 
-def _zamba_decode(params, cfg, batch, state, pos):
-    return zamba2.decode_step(params, cfg, batch["tokens"], state, pos)
+def _zamba_decode(params, cfg, batch, state, pos, mesh=None):
+    return zamba2.decode_step(params, cfg, batch["tokens"], state, pos,
+                              mesh)
 
 
 def _mllama_forward(params, cfg, batch, remat):
@@ -170,7 +181,8 @@ _FAMILY = {
     "hybrid": dict(init=zamba2.init, forward=_zamba_forward,
                    decode=_zamba_decode, init_state=zamba2.init_state,
                    param_specs=zamba2.param_specs,
-                   state_specs=zamba2.state_specs),
+                   state_specs=zamba2.state_specs,
+                   place_decode=zamba2.place_decode_params),
     "vlm": dict(init=mllama.init, forward=_mllama_forward,
                 decode=_mllama_decode, init_state=mllama.init_cache,
                 param_specs=mllama.param_specs,
@@ -254,8 +266,9 @@ class ModelAdapter:
         if self._fns is _TRANSFORMER:
             return transformer.init_cache(self.cfg, batch, max_seq, dtype,
                                           device, tp, mesh)
-        if self.cfg.family == "ssm":
-            return rwkv6.init_state(self.cfg, batch, device, mesh)
+        if self.cfg.family in ("ssm", "hybrid"):
+            return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
+                                           device, tp, mesh)
         start, stop = batch_rows(batch, mesh)
         return self._fns["init_state"](self.cfg, stop - start, max_seq,
                                        dtype, device, tp)
@@ -267,10 +280,23 @@ class ModelAdapter:
         if mesh is None:
             return self._fns["decode"](params, self.cfg, batch, state, pos)
         check_decode_mesh(self.cfg, model_size(mesh))
-        if self.cfg.family in ("dense", "moe", "ssm"):
+        if self.cfg.family in TP_DECODE_FAMILIES:
             return self._fns["decode"](params, self.cfg, batch, state, pos,
                                        mesh)
         return self._fns["decode"](params, self.cfg, batch, state, pos)
+
+    def place_decode_params(self, params: dict, mesh, tp: int) -> dict:
+        """This rank's decode parameters from `params` (the same on every
+        rank): its shards under ``param_specs(None, tp)``, replicated over
+        ``data`` (plain tensors, the parameters themselves where nothing is
+        split); zamba2 on a ``model`` axis of several ranks lays in_proj,
+        conv_w and its per-head leaves out by a rank's parts instead
+        (``zamba2.place_decode_params``)."""
+        place = self._fns.get("place_decode")
+        if place is not None:
+            return place(params, self.cfg, mesh, tp)
+        return local_tree(constrain_like(params, self.param_specs(None, tp),
+                                         mesh))
 
     def state_specs(self) -> dict:
         """Spec tuples of the decode state's tree."""

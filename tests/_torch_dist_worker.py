@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -263,11 +264,13 @@ def resume(ckpt_dir, witness_path, n_devices):
 # 4 slots, where its routing drops assignments that 2 slots never would.
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 2, 8, 128
 MOE_SERVE_SLOTS = 4
-# The families that serve on the data axis only.
+# The families whose serve loop the data-mesh test runs on 2x1 against one
+# process (test_data_mesh_serves_every_family).
 DATA_ONLY_ARCHS = ("zamba2-1.2b", "whisper-small", "llama-3.2-vision-90b")
-# The serve driver on a model axis of several ranks: granite serves there
-# (its code), reduced rwkv6-3b's one head does not split (the refusal).
-MODEL_AXIS_DRIVERS = ("granite-moe-3b-a800m", "rwkv6-3b")
+# The serve driver on a model axis of several ranks: granite and zamba2
+# serve there (their code), reduced rwkv6-3b's one head does not split
+# (the refusal).
+MODEL_AXIS_DRIVERS = ("granite-moe-3b-a800m", "rwkv6-3b", "zamba2-1.2b")
 
 
 def serve_slots(arch) -> int:
@@ -400,12 +403,157 @@ def cp_attention(inputs_path, mesh_texts):
     return out
 
 
+# --- zamba2 on a model axis (tests/test_torch_zamba2_tp.py) ----------------
+
+ZAMBA = "zamba2-1.2b"
+
+
+@contextlib.contextmanager
+def _calls(record: list):
+    """Append ("rowstream_matmul", w's shape), ("flash_decode", cache
+    slots), ("flash_decode_partial", cache slots) for each kernel call of
+    ``layers``, and ("all_gather" / "all_reduce", elements) for each
+    process-group collective, in call order."""
+    wrapped = [(layers, "rowstream_matmul", lambda x, w: tuple(w.shape)),
+               (layers, "flash_decode", lambda q, k, *a: k.shape[2]),
+               (layers, "flash_decode_partial", lambda q, k, *a: k.shape[2]),
+               (dist, "all_gather", lambda parts, t, **k: t.numel()),
+               (dist, "all_reduce", lambda t, **k: t.numel())]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wrapped]
+
+    def wrap(fn, name, what):
+        def call(*args, **kwargs):
+            record.append((name, what(*args, **kwargs)))
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name, what), (_, _, fn) in zip(wrapped, saved):
+        setattr(mod, name, wrap(fn, name, what))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def zamba2_decode(inputs_path, mesh_texts):
+    """For each mesh: reduced fp32 zamba2's decode steps from the inputs'
+    seeded parameters placed as the serve driver places them and an fp32
+    state, each rank its rows, the logits gathered over the data axis;
+    from every rank the local shapes and bytes of the placed parameters
+    and of the state, and its kernel calls and collectives step by step
+    (:func:`_calls`); the serve loop's greedy tokens on the mesh from the
+    inputs' plain parameters, and the serve driver's exit code there (its
+    own seeded bf16 model)."""
+    params, plain, tokens, max_seq = torch.load(inputs_path,
+                                                weights_only=False)
+    cfg = fp32_cfg(ZAMBA)
+    ad = get_adapter(cfg)
+    out = {}
+    for text in mesh_texts:
+        mesh = _data_mesh(text)
+        tp = parse_mesh(text)[-1]
+        placed = port_serve.place_params(ad, params, mesh, tp)
+        b = tokens.shape[1]
+        state = ad.init_decode_state(b, max_seq, dtype=torch.float32,
+                                     device="cpu", mesh=mesh)
+        r0, r1 = sharding.batch_rows(b, mesh)
+        logits, steps = [], []
+        with torch.inference_mode():
+            for pos, tok in enumerate(tokens):
+                calls = []
+                with _calls(calls):
+                    lg, state = ad.decode(placed, {"tokens": tok[r0:r1]},
+                                          state, pos, mesh)
+                logits.append(lg)
+                steps.append(calls)
+        record = {
+            "local": {"/".join(p): tuple(t.shape)
+                      for p, t in _leaves(placed)},
+            "bytes": sum(t.numel() * t.element_size()
+                         for _, t in _leaves(placed)),
+            "state": {k: tuple(sharding.local(t).shape)
+                      for k, t in state.items()},
+            "steps": steps}
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, record)
+        run = port_serve.serve(
+            cfg, port_serve.place_params(ad, plain, mesh, tp),
+            port_serve.make_requests(SERVE_REQUESTS, 16, SERVE_NEW,
+                                     cfg.vocab, 0),
+            SERVE_SLOTS, SERVE_MAX_SEQ, "cpu", mesh)
+        out[text] = {
+            "logits": sharding.all_gather(torch.stack(logits), mesh,
+                                          sharding.BATCH_AXES, 1).numpy(),
+            "ranks": ranks, "cache_seq": state["k"].shape[3],
+            "tokens": {r.rid: r.out_tokens for r in run.batcher.completed},
+            "driver": port_serve.main(
+                ["--arch", ZAMBA, "--reduced", "--device", "cpu", "--mesh",
+                 text, "--requests", str(SERVE_REQUESTS), "--slots",
+                 str(SERVE_SLOTS), "--max-new", str(SERVE_NEW)])}
+    return out
+
+
+def gather_parts_adjoint(seed):
+    """``sharding.gather_parts_for_model`` in fp64 on the model axis, its
+    indices overlapping between the ranks: <f(x), y> and <x, f*(y)>, each
+    summed over the ranks (its output is per rank), x each rank's part of
+    the whole (a per-rank space, summed) or the whole itself (replicated,
+    taken once); and the output and gradient shapes."""
+    world = dist.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"), "cpu")
+    rank = sharding.model_rank(mesh)
+    shared = torch.Generator().manual_seed(seed)
+    own = torch.Generator().manual_seed(seed + 1 + rank)
+    width = 4 * world
+    # this rank's 3 columns of the first 3 * world, and the last `world`
+    # columns, which every rank takes
+    index = torch.cat([torch.arange(3 * rank, 3 * rank + 3),
+                       torch.arange(3 * world, width)])
+
+    def inner(a, b, replicated):
+        v = torch.sum(a * b).reshape(1)
+        return v if replicated else sharding.sum_over(v, mesh, ("model",))
+
+    out = {}
+    for case, (x_rep, cols) in {"part": (False, 4),
+                                "whole": (True, width)}.items():
+        x = torch.randn((3, cols, 2), generator=shared if x_rep else own,
+                        dtype=torch.float64).requires_grad_(True)
+        y = torch.randn((3, len(index), 2), generator=own,
+                        dtype=torch.float64)
+        fx = sharding.gather_parts_for_model(x, mesh, 1, index, width)
+        (xbar,) = torch.autograd.grad(fx, x, y)
+        out[case] = (float(inner(fx.detach(), y, False)),
+                     float(inner(x.detach(), xbar, x_rep)),
+                     tuple(fx.shape), tuple(xbar.shape))
+    return out
+
+
 JOBS = {"meshes": meshes, "adamw_2x2": adamw_2x2, "save_2x2": save_2x2,
         "resume": resume, "serve_meshes": serve_meshes,
-        "cp_attention": cp_attention, "tp_collectives": tp_collectives}
+        "cp_attention": cp_attention, "tp_collectives": tp_collectives,
+        "zamba2_decode": zamba2_decode,
+        "gather_parts_adjoint": gather_parts_adjoint}
+
+# Seconds a spawn may take before its ranks are killed and its test fails:
+# the slowest spawn of these tests took under 90 s on one xdist worker.
+SPAWN_TIMEOUT_S = 600
+# Characters of each rank's log a failed spawn shows.
+LOG_TAIL = 4000
 
 
-def _main(rank, world, store_path, out_path, jobs):
+def _log(tmp_dir: str, world: int, rank: int) -> str:
+    return os.path.join(tmp_dir, f"world{world}.rank{rank}.log")
+
+
+def _main(rank, world, store_path, out_path, jobs, tmp_dir):
+    # What this rank prints goes to its log, which the parent shows when
+    # the spawn fails or runs past its time limit.
+    log = os.open(_log(tmp_dir, world, rank),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(log, 1)
+    os.dup2(log, 2)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
@@ -417,12 +565,43 @@ def _main(rank, world, store_path, out_path, jobs):
         dist.destroy_process_group()
 
 
+def _logs(tmp_dir: str, world: int) -> str:
+    text = []
+    for rank in range(world):
+        try:
+            with open(_log(tmp_dir, world, rank), errors="replace") as f:
+                text.append(f"--- rank {rank} ---\n{f.read()[-LOG_TAIL:]}")
+        except OSError:
+            text.append(f"--- rank {rank}: no log ---")
+    return "\n".join(text)
+
+
 def spawn(world: int, tmp_dir: str, jobs: list) -> dict:
     """Run each (job name, args) of `jobs` in turn on `world` spawned
-    ranks of one process group; rank 0's results by job name."""
+    ranks of one process group; rank 0's results by job name. Ranks still
+    running after SPAWN_TIMEOUT_S seconds are killed; then, as when a rank
+    fails, this raises with the end of what each rank printed."""
     store = os.path.join(tmp_dir, f"world{world}.store")
     out = os.path.join(tmp_dir, f"world{world}.pt")
-    mp.start_processes(_main, args=(world, store, out, jobs), nprocs=world,
-                       start_method="spawn")
+    ctx = mp.start_processes(_main, args=(world, store, out, jobs, tmp_dir),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                for proc in ctx.processes:
+                    proc.join()
+                raise RuntimeError(
+                    f"{world} spawned ranks ran past {SPAWN_TIMEOUT_S} s and were "
+                    f"killed; what they printed:\n{_logs(tmp_dir, world)}")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        raise RuntimeError(f"a spawned rank failed: {e}\nwhat the ranks "
+                           f"printed:\n{_logs(tmp_dir, world)}") from e
     return torch.load(out, weights_only=False)
 

@@ -90,6 +90,7 @@ from test_torch_rwkv6 import _seed_block
 from test_torch_rwkv6 import bridged as rwkv_bridged
 from test_torch_train import GRAD_TOL, LOSS_TOL, OPT_TOL
 from test_torch_train import _batch as parity_batch
+from test_torch_zamba2 import bridged as zamba_bridged
 
 ARCHS = ["qwen2-7b", "rwkv6-3b"]
 MESHES_OF_2 = ["2x1", "1x2", "2"]
@@ -871,12 +872,14 @@ def test_serve_driver_refuses_a_multi_card_mesh_on_cuda(monkeypatch):
                                   "zamba2-1.2b", "whisper-small",
                                   "llama-3.2-vision-90b"])
 def test_serve_driver_refuses_other_families_on_a_model_axis(runs, arch):
-    """zamba2, whisper and mllama are refused on a model axis of 2 (item
-    4c) before any process group is made. granite-moe-3b and rwkv6-3b
-    serve there: the serve driver's run of reduced granite on 1x2 ends
-    with code 0, and rwkv6-3b at d_model 128 (2 heads) serves its
-    one-process tokens on 1x2; reduced rwkv6-3b's one head does not split,
-    and the serve driver says so."""
+    """whisper and mllama are refused on a model axis of 2 (item 4c)
+    before any process group is made. granite-moe-3b, rwkv6-3b and
+    zamba2 serve there: the serve driver's runs of reduced granite and
+    reduced zamba2 on 1x2 end with code 0 (zamba2's tokens are held
+    against the JAX driver's in tests/test_torch_zamba2_tp.py), and
+    rwkv6-3b at d_model 128 (2 heads) serves its one-process tokens on
+    1x2; reduced rwkv6-3b's one head does not split, and the serve driver
+    says so."""
     if arch in worker.MODEL_AXIS_DRIVERS:
         got = runs["serve"]["1x2"]["drivers"][arch]
         if arch == "rwkv6-3b":
@@ -884,6 +887,8 @@ def test_serve_driver_refuses_other_families_on_a_model_axis(runs, arch):
             arch = "rwkv6-3b-d128"
         else:
             assert got == 0
+        if arch == "zamba2-1.2b":
+            return
         assert runs["serve"]["1x2"][arch]["tokens"] \
             == runs["serve_ref"][arch]["tokens"]
         return
@@ -906,13 +911,15 @@ def test_one_by_one_mesh_step_is_the_meshless_step(monkeypatch):
 
 @pytest.mark.parametrize("arch,launched", [
     ("granite-moe-3b-a800m", {"rowstream_matmul", "flash_decode"}),
-    ("rwkv6-3b", {"rowstream_matmul"})])
+    ("rwkv6-3b", {"rowstream_matmul"}),
+    ("zamba2-1.2b", {"rowstream_matmul", "flash_decode"})])
 def test_one_by_one_mesh_step_is_the_meshless_step_for(monkeypatch, arch,
                                                        launched):
-    """The 1x1 check above for the MoE family and rwkv6: the same calls,
-    no collective (the MoE's routing gathers and expert sums, rwkv6's
-    head gather and row-parallel sums included), bit-equal logits and
-    tokens."""
+    """The 1x1 check above for the MoE family, rwkv6 and zamba2: the same
+    calls, no collective (the MoE's routing gathers and expert sums,
+    rwkv6's head gather and row-parallel sums, zamba2's gated-norm and
+    out_proj sums included), bit-equal logits and tokens, and zamba2's
+    placement keeping the parameters' storage (no by-parts copy)."""
     assert _one_by_one_decode(monkeypatch, arch) == launched
 
 
@@ -933,8 +940,12 @@ def _one_by_one_decode(monkeypatch, arch) -> set:
             fn = getattr(mod, name)
             monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k:
                                 calls.append(_n) or _fn(*a, **k))
-    _, cfg, p = rwkv_bridged(64) if arch == "rwkv6-3b" \
-        else dense_bridged(arch)
+    if arch == "rwkv6-3b":
+        _, cfg, p = rwkv_bridged(64)
+    elif arch == "zamba2-1.2b":
+        _, cfg, p = zamba_bridged("float32")
+    else:
+        _, cfg, p = dense_bridged(arch)
     params = bridge.to_torch(p, "cpu")
     ad = get_adapter(cfg)
     mesh = port_mesh.make_mesh((1, 1), ("data", "model"), "cpu")
@@ -967,13 +978,14 @@ def _one_by_one_decode(monkeypatch, arch) -> set:
 @pytest.mark.parametrize("arch", sorted(ALL_ARCHS))
 def test_train_tp_path_by_family(arch):
     """Which reduced archs compute on the shards of a model axis of 2: the
-    dense and MoE families (8 experts, split 4 a rank); rwkv6-3b at
-    d_model 128 but not at 64 (one head); the other families not yet. On
+    dense and MoE families (8 experts, split 4 a rank) and zamba2 (8 SSM
+    heads, 4 a rank); rwkv6-3b at d_model 128 but not at 64 (one head);
+    the VLM and audio families not yet. On
     a model axis of one rank none does. An MoE whose experts and FFN
     width both do not split gathers whole, with the reason."""
     cfg = reduced(ALL_ARCHS[arch])
     on, why = registry.train_tp_path(cfg, 2)
-    assert on == (cfg.family in ("dense", "moe"))
+    assert on == (cfg.family in ("dense", "moe", "hybrid"))
     assert cfg.name in why
     if cfg.moe:
         odd = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -995,10 +1007,13 @@ def test_forward_on_a_model_axis_refuses_what_does_not_split():
     several ranks with the reason (the train step gathers its parameters
     whole instead); on a model axis of one rank the forward is the
     single-process one."""
-    cfg = reduced(ALL_ARCHS["zamba2-1.2b"], dtype="float32")
+    cfg = reduced(ALL_ARCHS["whisper-small"], dtype="float32")
     ad = get_adapter(cfg)
     params = ad.init(torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "frames": torch.randn((1, cfg.n_audio_frames, cfg.d_model),
+                                   generator=torch.Generator()
+                                   .manual_seed(1))}
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         ad.forward(params, batch, mesh=ModelAxis(2))
     assert torch.equal(ad.forward(params, batch, mesh=ModelAxis(1)),

@@ -29,7 +29,7 @@ from repro.models.registry import get_adapter as jax_get_adapter
 from repro_torch import bridge
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry_configs import ALL_ARCHS
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 from repro_torch.models import zamba2 as tz
 from repro_torch.models.registry import get_adapter
 
@@ -215,8 +215,9 @@ def test_forward_bf16_matches_jax_block_by_block():
         if i < n_shared * k and (i + 1) % k == 0:
             ref = jz._shared_block_seq(jp["shared"], jcfg, h,
                                        jnp.asarray(positions))
-            held(ref, tz._shared_block_seq(tp["shared"], cfg, port(h),
-                                           torch.from_numpy(positions.copy())))
+            held(ref, transformer._block_forward(
+                cfg, port(h), tp["shared"],
+                torch.from_numpy(positions.copy())))
             h = ref
     assert np.isfinite(_bf16_logits(params, jcfg, toks)).all()
     got = get_adapter(cfg).forward(tp, {"tokens": torch.from_numpy(toks)})
