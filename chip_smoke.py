@@ -152,6 +152,23 @@ GPU, from the root of a checkout:
      rowstream_matmul is timed at a rank's products (in_proj by parts,
      out_proj, the shared block's halves, the head) beside the whole ones,
      and flash_decode_partial over a rank's 64 of 128 slots.
+   * whisper-small and llama-3.2-vision on model shards: served without
+     a mesh and on a 1x1 mesh (the meshless tokens at the meshless
+     launches), then two ranks spawned on the one card over gloo, each on
+     half of the heads, the products' columns or rows, the vocabulary and
+     the self KV's slots, the cross KV filled from the stub input by
+     precompute_cross_kv on the rank's shards: whisper's 1500 frames 750
+     a rank through flash_decode_partial, mllama's 1601 vision tokens
+     (which 2 does not divide) whole on both ranks; 8 fed steps at 4 slots
+     in fp32 (whisper whole, mllama at 1 unit) held at 0.15 and 1e-4 of
+     the largest logit against the meshless run, in bf16 reported, each
+     rank at the meshless step's rowstream_matmul launches and the
+     attention calls its slots hold. The full run takes mllama at 1
+     pattern unit and leaves out the serves on 1x2 and the timings that
+     `--only cross_tp` adds (mllama at 2 units, both bf16 serves on 1x2,
+     rowstream_matmul at a rank's products beside the whole ones,
+     flash_decode_partial over 750 of 1500 frames, flash_decode with SDPA
+     over both whole cross KVs).
    * rwkv6-3b: (a) ``forward`` on 4 x 1024 prompt tokens, one rwkv_scan
      launch per layer, logits held against the plain path's; (b) the first
      64 tokens of those prompts stepped through ``decode_step``, held
@@ -216,6 +233,8 @@ the MoE / rwkv6 phase on model shards and its timings, its bf16 training
 at all 32 layers (no ``ok`` line). ``--only zamba2_tp`` likewise runs
 only zamba2's phase on model shards at full depth, its bf16 fed steps,
 serve and training on 1x2 included, and its timings (no ``ok`` line).
+``--only cross_tp`` likewise runs only whisper's and mllama's phase on
+model shards and its timings (no ``ok`` line).
 ``--baseline`` runs either on a tree whose kernel predates its redesign
 (copy this script into that tree's root): it leaves out the checks and
 plan that the redesign added and times the old kernel's device kernels
@@ -2902,14 +2921,14 @@ def zamba2_profiled(torch, z: dict) -> tuple[dict, list]:
 
 # --- the cross-attention families: whisper-small, llama-3.2-vision ----------
 
-def cross_cfg(name: str):
+def cross_cfg(name: str, units: int = MLLAMA_UNITS):
     """whisper-small whole, or llama-3.2-vision at full width with its depth
-    cut to MLLAMA_UNITS pattern units."""
+    cut to `units` pattern units."""
     from repro_torch.configs.registry_configs import ALL_ARCHS
     cfg = ALL_ARCHS[name]
     if name == MLLAMA:
         cfg = dataclasses.replace(
-            cfg, n_layers=MLLAMA_UNITS * cfg.cross_attn_every)
+            cfg, n_layers=units * cfg.cross_attn_every)
     return cfg
 
 
@@ -2962,6 +2981,28 @@ def cross_kv(torch, cfg, params, extra: dict) -> tuple:
                 params, cfg, whisper.encode(params, cfg, extra["frames"]))
         return mllama.precompute_cross_kv(params, cfg,
                                           extra["vision_embeds"])
+
+
+def cross_source(torch, cfg, params):
+    """What ``precompute_cross_kv`` takes for the stub input of
+    :func:`cross_inputs` (PREFILL_B rows): whisper's encoder output, made
+    with `params` whole, or mllama's vision embeddings."""
+    from repro_torch.models import whisper
+    extra = cross_inputs(torch, cfg)
+    if cfg.family == "vlm":
+        return extra["vision_embeds"]
+    with torch.inference_mode():
+        return whisper.encode(params, cfg, extra["frames"])
+
+
+def meshless_cross_kv(torch, cfg, params) -> tuple:
+    """(xk, xv) of the stub input through ``precompute_cross_kv`` without
+    a mesh: the cross KV that the mesh runs are held against."""
+    from repro_torch.models import mllama, whisper
+    mod = whisper if cfg.family == "audio" else mllama
+    with torch.inference_mode():
+        return mod.precompute_cross_kv(params, cfg,
+                                       cross_source(torch, cfg, params))
 
 
 def cross_weights(cfg, params) -> list:
@@ -3304,15 +3345,20 @@ MESH_STEPS = 8
 MESH_TIMEOUT_S = 600
 
 
-def fed_logits(torch, ad, params, tokens, cache_dtype=None, mesh=None):
+def fed_logits(torch, ad, params, tokens, cache_dtype=None, mesh=None,
+               cross=None):
     """Logits (steps, b, V) in fp32 of decode steps fed tokens[t] (b, 1) at
     pos t from a fresh state, its cache in `cache_dtype` where given, on
     `mesh` where given (`params` then this rank's shards, and the logits
-    its rows of the b)."""
-    from repro_torch.distributed.sharding import batch_rows
+    its rows of the b); its cross KV set to `cross` (xk, xv: this rank's
+    shards of it on a mesh) where given."""
+    from repro_torch.distributed.sharding import batch_rows, local
     kw = {} if cache_dtype is None else {"dtype": cache_dtype}
     state = ad.init_decode_state(tokens.shape[1], MAX_SEQ, device="cuda",
                                  mesh=mesh, **kw)
+    if cross is not None:
+        local(state["xk"]).copy_(cross[0])
+        local(state["xv"]).copy_(cross[1])
     r0, r1 = batch_rows(tokens.shape[1], mesh)
     out = []
     with torch.inference_mode():
@@ -3950,6 +3996,33 @@ def recorded_route(calls: list):
         moe.route = route
 
 
+@contextlib.contextmanager
+def recorded_attention(calls: dict):
+    """Count, in `calls`, each call that ``layers`` makes of flash_decode
+    and flash_decode_partial, by entry and the slots of the cache or
+    shard it was given ("flash_decode_partial over 750 slots"). A call of
+    the partial entry on a shard with no valid slot is counted here but
+    launches nothing."""
+    from repro_torch.models import layers
+    saved = {name: getattr(layers, name)
+             for name in ("flash_decode", "flash_decode_partial")}
+
+    def wrap(name, fn):
+        def call(q, k, *args):
+            key = f"{name} over {k.shape[2]} slots"
+            calls[key] = calls.get(key, 0) + 1
+            return fn(q, k, *args)
+        return call
+
+    for name, fn in saved.items():
+        setattr(layers, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+
+
 def decisions_differ(a: list, b: list) -> int:
     """(token, layer) routing decisions that differ between two runs'
     recorded_route calls: tokens whose set of experts differs."""
@@ -3964,16 +4037,20 @@ def drops_by_step(calls: list, layers: int) -> list:
 
 
 def tp_reference(torch, cfg, params, prompts, fp32_layers: int,
-                 steps: int) -> dict:
+                 steps: int, cross: bool = False) -> dict:
     """What the MoE / rwkv6 ranks are held against: `steps` greedy
     steps of `cfg` (bf16) from the first token of each of the first SLOTS
     prompts, their tokens, logits and MoE routing; then the same tokens
     through `cfg` in fp32 cut to `fp32_layers` layers (weights from the
-    same seed, an fp32 cache), its logits and routing."""
+    same seed, an fp32 cache), its logits and routing. With `cross`
+    (whisper, mllama) the weights are :func:`cross_params` and each
+    state's cross KV is filled from the stub input
+    (:func:`meshless_cross_kv`)."""
     from repro_torch.launch.serve import greedy_sample
     from repro_torch.models.registry import get_adapter
     ad = get_adapter(cfg)
-    state = ad.init_decode_state(SLOTS, MAX_SEQ, device="cuda")
+    state = filled_state(ad, SLOTS, MAX_SEQ, meshless_cross_kv(
+        torch, cfg, params) if cross else None)
     tok = torch.tensor([[t[0]] for t in prompts[:SLOTS]], dtype=torch.int32,
                        device="cuda")
     toks, lgs, route16, route32 = [], [], [], []
@@ -3986,10 +4063,11 @@ def tp_reference(torch, cfg, params, prompts, fp32_layers: int,
     del state
     tokens = torch.stack(toks)
     cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=fp32_layers)
-    p32 = init_params(torch, cfg32)
+    p32 = (cross_params if cross else init_params)(torch, cfg32)
     with recorded_route(route32):
         lg32 = fed_logits(torch, get_adapter(cfg32), p32, tokens,
-                          torch.float32)
+                          torch.float32, cross=meshless_cross_kv(
+                              torch, cfg32, p32) if cross else None)
     del p32
     torch.cuda.empty_cache()
     return {"cfg": cfg, "fp32_layers": fp32_layers, "tokens": tokens.cpu(),
@@ -4020,16 +4098,22 @@ def _tp_model_runs(torch, ref: dict, mesh, whole: bool = True,
     cut depth and, with `whole`, bf16 at the reference's depth, each from
     init(tp) on the seed placed by the serve driver's ``place_params`` and
     fed the reference's tokens, the logits gathered over the batch axes,
-    the MoE routing recorded, the launches counted; then, with `whole`
-    and `serve`, the bf16 model serves the driver's requests on the
-    mesh."""
+    the MoE routing and the attention calls recorded, the launches
+    counted; then, with `whole` and `serve`, the bf16 model serves the
+    driver's requests on the mesh. whisper and mllama take
+    :func:`cross_params` instead, and their cross KV is filled by
+    ``precompute_cross_kv(mesh)`` on this rank's shards from the stub
+    input's source (:func:`cross_source`, computed with the whole model
+    before it is cut)."""
     import torch.distributed as dist
     from repro_torch.distributed.sharding import (BATCH_AXES, all_gather,
-                                                  model_size)
+                                                  batch_rows, model_size)
     from repro_torch.kernels import launch_counters, reset_launch_counters
     from repro_torch.launch.serve import place_params
+    from repro_torch.models import mllama, whisper
     from repro_torch.models.registry import get_adapter
     cfg, n = ref["cfg"], model_size(mesh)
+    cross = cfg.family in ("audio", "vlm")
     tokens = ref["tokens"].to("cuda")
     out = {}
     params = None
@@ -4044,17 +4128,31 @@ def _tp_model_runs(torch, ref: dict, mesh, whole: bool = True,
         # card (phi3.5-moe's 8 layers are 21.3 GB).
         for turn in range(dist.get_world_size()):
             if turn == dist.get_rank():
-                params = place_params(ad, ad.init(torch.Generator(
-                    device="cuda").manual_seed(SEED), tp=n), mesh, n)
+                if cross:
+                    full = cross_params(torch, c)
+                    src = cross_source(torch, c, full)
+                else:
+                    full = ad.init(torch.Generator(
+                        device="cuda").manual_seed(SEED), tp=n)
+                params = place_params(ad, full, mesh, n)
+                del full
                 torch.cuda.empty_cache()
             dist.barrier()
-        calls = []
+        kv = None
+        if cross:
+            r0, r1 = batch_rows(SLOTS, mesh)
+            mod = whisper if c.family == "audio" else mllama
+            with torch.inference_mode():
+                kv = mod.precompute_cross_kv(params, c, src[r0:r1], mesh)
+            del src
+        calls, attention = [], {}
         reset_launch_counters()
-        with recorded_route(calls):
-            lg = fed_logits(torch, ad, params, tokens, cache_dtype, mesh)
+        with recorded_route(calls), recorded_attention(attention):
+            lg = fed_logits(torch, ad, params, tokens, cache_dtype, mesh, kv)
+        del kv
         out[c.dtype] = {
             "logits": all_gather(lg, mesh, BATCH_AXES, 1).cpu(),
-            "route": calls,
+            "route": calls, "attention": attention,
             "counts": {k: v.count for k, v in launch_counters().items()},
             "weight_bytes": sum(t.numel() * t.element_size()
                                 for t in _tensors(params))}
@@ -4552,6 +4650,193 @@ def zamba2_tp_kernels(torch) -> dict:
     return {"rowstream_matmul": products, "flash_decode_partial": partial}
 
 
+# whisper and llama-3.2-vision on model shards (``--only cross_tp``, and in
+# the full run): CROSS_TP_RANKS ranks spawned on the one card over gloo, as
+# the checks above. The parent serves whisper-small whole and
+# llama-3.2-vision at full width cut to MLLAMA_UNITS pattern units
+# (FULL_RUN_CROSS_TP_UNITS in the full run) without a mesh and on a 1x1
+# mesh (the meshless tokens at the meshless launches), and keeps
+# MESH_STEPS greedy steps of each with its cross KV filled from the stub
+# input (tp_reference with `cross`): the tokens fed, the bf16 logits and
+# the logits in fp32 (whisper at full depth, mllama at CROSS_TP_FP32_UNITS
+# unit). The ranks then run the same steps on 1x2, each on its half of
+# the heads, of the products' columns or rows, of the vocabulary and of
+# the self KV's slots, the cross KV filled by precompute_cross_kv on the
+# rank's shards and laid out as the reference lays it out: whisper's 1500
+# frames split, 750 a rank, through flash_decode_partial; mllama's 1601
+# vision tokens, which 2 does not divide, whole on both ranks through
+# flash_decode. fp32 logits are held at LOGITS_ATOL and at
+# CROSS_FP32_RTOL of the largest logit, bf16 reported; each rank must
+# launch the meshless step's rowstream_matmul count and the attention its
+# slots hold; then each bf16 model serves the driver's requests on 1x2
+# (`--only cross_tp`; the full run leaves the serves out).
+# CROSS_TP_TIMEOUT_S bounds the ranks' run.
+CROSS_TP_RANKS = 2
+CROSS_TP_FP32_UNITS = 1
+FULL_RUN_CROSS_TP_UNITS = 1
+CROSS_TP_TIMEOUT_S = 900
+
+
+def _cross_tp_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of the whisper / mllama check (a spawned process): a gloo
+    group through a FileStore, the run, its results saved for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        refs = torch.load(Path(tmp) / "cross_tp_ref.pt", weights_only=False)
+        mesh = make_mesh((1, CROSS_TP_RANKS), ("data", "model"), "cuda")
+        out = {name: _tp_model_runs(torch, ref, mesh, serve=refs["serve"])
+               for name, ref in refs["models"].items()}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.save(out, Path(tmp) / f"cross_tp_out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def cross_tp_phase(torch, units: int = MLLAMA_UNITS,
+                   serve: bool = True) -> dict:
+    """The whisper / mllama check (see CROSS_TP_RANKS), mllama at `units`
+    pattern units; with `serve` each bf16 model also serves on 1x2."""
+    from repro_torch.models import mllama
+    t_ref = time.perf_counter()
+    refs, serves, ones = {}, {}, {}
+    for name in (WHISPER, MLLAMA):
+        cfg = cross_cfg(name, units)
+        params = cross_params(torch, cfg)
+        sv = serve_phase(torch, cfg, params, per_step(cfg))
+        print_serve(f"{name} ({cfg.n_layers} layers)", sv)
+        ones[name] = numbers_of_serve(mesh_serve_phase(torch, cfg, params,
+                                                       sv))
+        prompts = [r.prompt for r in sorted(sv["run"].batcher.completed,
+                                            key=lambda r: r.rid)]
+        fp32_layers = cfg.n_layers if name == WHISPER \
+            else CROSS_TP_FP32_UNITS * cfg.cross_attn_every
+        refs[name] = tp_reference(torch, cfg, params, prompts, fp32_layers,
+                                  MESH_STEPS, cross=True)
+        serves[name] = sv
+        del params
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cross_tp_"))
+    try:
+        torch.save({"models": refs, "serve": serve}, tmp / "cross_tp_ref.pt")
+        seconds = _spawned(_cross_tp_rank, tmp, CROSS_TP_TIMEOUT_S,
+                           "whisper / mllama", CROSS_TP_RANKS)
+        outs = [torch.load(tmp / f"cross_tp_out_{r}.pt", weights_only=False)
+                for r in range(CROSS_TP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"seconds": seconds, "reference_seconds": ref_s, "units": units,
+           "mesh_1x1": ones,
+           "meshless_counts": {n: sv["counts"] for n, sv in serves.items()},
+           "peak_bytes": [o["peak_bytes"] for o in outs], "models": {}}
+    slots = MAX_SEQ // CROSS_TP_RANKS
+    for name, ref in refs.items():
+        runs = [o[name] for o in outs]
+        verdict = tp_model_verdict(name, "1x2", ref, runs, serves[name],
+                                   "cross_tp")
+        for dt, r in verdict.items():
+            if dt == "serve":
+                continue
+            depth = ref["fp32_layers"] if dt == "float32" \
+                else ref["cfg"].n_layers
+            c = dataclasses.replace(ref["cfg"], n_layers=depth)
+            if c.family == "audio":
+                n_self = n_cross = depth
+                S = c.n_audio_frames
+            else:
+                k, n_cross = mllama._pattern(c)
+                n_self = n_cross * (k - 1)
+                S = c.n_vision_tokens
+            if dt == "float32":
+                rel = r["max_diff"] / r["max_logit"]
+                r["rel_diff"] = rel
+                check(rel <= CROSS_FP32_RTOL,
+                      f"{name} fp32 on 1x{CROSS_TP_RANKS}: logits differ "
+                      f"from the meshless run by {rel} of the largest "
+                      f"(> {CROSS_FP32_RTOL})")
+            meshless = per_step(c)
+            split = S % CROSS_TP_RANKS == 0
+            cross_call = (f"flash_decode_partial over "
+                          f"{S // CROSS_TP_RANKS} slots" if split
+                          else f"flash_decode over {S} slots")
+            r["attention"] = [run[dt]["attention"] for run in runs]
+            for rank, (counts, calls) in enumerate(zip(r["counts"],
+                                                       r["attention"])):
+                # a rank's half of the self KV launches flash_decode once
+                # it holds a valid slot (pos >= rank * slots)
+                self_steps = sum(pos >= rank * slots
+                                 for pos in range(MESH_STEPS))
+                want = {kn: v * MESH_STEPS for kn, v in meshless.items()}
+                want["flash_decode"] = n_cross * MESH_STEPS \
+                    + n_self * self_steps
+                check(counts == want,
+                      f"{name} {dt} on 1x{CROSS_TP_RANKS}, rank {rank}: "
+                      f"launches {counts} in {MESH_STEPS} steps; the "
+                      f"meshless step's {meshless} a step and this rank's "
+                      f"slots make {want}")
+                want_calls = {cross_call: n_cross * MESH_STEPS,
+                              f"flash_decode_partial over {slots} slots":
+                              n_self * MESH_STEPS}
+                check(calls == want_calls,
+                      f"{name} {dt} on 1x{CROSS_TP_RANKS}, rank {rank}: "
+                      f"attention calls {calls}, expected {want_calls}")
+            print(f"[cross_tp] {name} {dt} at {depth} layers on "
+                  f"1x{CROSS_TP_RANKS}: attention calls by rank "
+                  f"{r['attention']} over {MESH_STEPS} steps (the cross KV "
+                  f"{'split by sequence' if split else 'whole on each rank'}"
+                  f"; its {S} slots)"
+                  + (f"; fp32 logits {r['rel_diff']!r} of the largest from "
+                     f"the meshless run (held at {CROSS_FP32_RTOL})"
+                     if dt == "float32" else ""))
+        res["models"][name] = {"1x2": verdict}
+    print(f"[cross_tp] references {ref_s:.1f} s; ranks {seconds:.1f} s "
+          f"from spawn to join; peak bytes by rank {res['peak_bytes']}")
+    return res
+
+
+def cross_tp_kernels(torch) -> dict:
+    """rowstream_matmul at the products a rank of 1x2 launches in a
+    whisper-small and a llama-3.2-vision decode step (its columns of the
+    query, key and value heads and of the MLP's or SwiGLU's first
+    products, its rows of the outputs and of the MLP's or SwiGLU's last,
+    its vocabulary of the head), each beside the whole product;
+    flash_decode_partial over a rank's 750 of whisper's 1500 cross frames
+    beside the partial entry over all 1500; flash_decode with SDPA beside
+    it over whisper's 1500 frames and over mllama's 1601 vision tokens,
+    which each rank of 1x2 attends whole."""
+    from repro_torch.configs.registry_configs import ALL_ARCHS
+    from repro_torch.distributed.sharding import padded_vocab
+    from repro_torch.models import mllama
+    n = CROSS_TP_RANKS
+    shapes = []     # (a rank's shard, the whole product) pairs
+    for name in (WHISPER, MLLAMA):
+        c = ALL_ARCHS[name]
+        d, ff, V = c.d_model, c.d_ff, padded_vocab(c.vocab)
+        q = c.n_heads * c.resolved_head_dim
+        kv = c.n_kv_heads * c.resolved_head_dim
+        shapes += [((d, q // n), (d, q)), ((d, kv // n), (d, kv)),
+                   ((q // n, d), (q, d)), ((d, ff // n), (d, ff)),
+                   ((ff // n, d), (ff, d)), ((d, V // n), (d, V))]
+    shapes = list(dict.fromkeys(s for pair in shapes for s in pair))
+    products = rowstream_products(torch, shapes)
+    w = ALL_ARCHS[WHISPER]
+    partial = partial_timings(torch, w, (w.n_audio_frames,), (1, n))
+    m = cross_cfg(MLLAMA)
+    mc = dataclasses.replace(m, n_layers=mllama._pattern(m)[1])
+    whole = {WHISPER: flash_timings(torch, w, (w.n_audio_frames,)),
+             MLLAMA: flash_timings(torch, mc, (m.n_vision_tokens,))}
+    return {"rowstream_matmul": products, "flash_decode_partial": partial,
+            "flash_decode": whole}
+
+
 def main(argv=None) -> int:
     global RM_KERNELS, RS_KERNELS, RS_BWD_KERNELS
     import argparse
@@ -4559,7 +4844,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["flash_decode", "rowstream_matmul",
                                        "rwkv_scan", "zamba2", "whisper",
                                        "mllama", "train", "train_tp",
-                                       "mesh", "moe_tp", "zamba2_tp"],
+                                       "mesh", "moe_tp", "zamba2_tp",
+                                       "cross_tp"],
                     help="run only this kernel's phase (the card line, its "
                          "build, its checks and its timings) or this "
                          "model's phases (all kernels built and checked); "
@@ -4595,7 +4881,7 @@ def main(argv=None) -> int:
         names = build.KERNELS
     elif args.only in ("rwkv_scan", "train", "train_tp") and has_bwd:
         names = ("rwkv_scan", "rwkv_scan_bwd")
-    elif args.only in ("mesh", "moe_tp", "zamba2_tp"):
+    elif args.only in ("mesh", "moe_tp", "zamba2_tp", "cross_tp"):
         names = ("flash_decode", "rowstream_matmul")
     else:
         names = (args.only,)
@@ -4675,6 +4961,15 @@ def main(argv=None) -> int:
         zt["kernels"] = zamba2_tp_kernels(torch)
         print(json.dumps({"zamba2_tp": dict(zt, partial_checks=partial,
                                             max_abs_err=errs)}))
+        print(f"[run] {time.perf_counter() - t_start:.0f} s")
+        print(card)
+        return 0
+    if args.only == "cross_tp":
+        errs["rowstream_matmul"] = check_rowstream(torch, dev)
+        ct = cross_tp_phase(torch)
+        ct["kernels"] = cross_tp_kernels(torch)
+        print(json.dumps({"cross_tp": dict(ct, partial_checks=partial,
+                                           max_abs_err=errs)}))
         print(f"[run] {time.perf_counter() - t_start:.0f} s")
         print(card)
         return 0
@@ -4798,6 +5093,13 @@ def main(argv=None) -> int:
     lap("the MoE family and rwkv6-3b on 1x2 and 2x1")
     zamba_tp = zamba2_tp_phase(torch, FULL_RUN_ZAMBA_LAYERS)
     lap("zamba2-1.2b on 1x2")
+    print(f"[depth] {MLLAMA} on 1x{CROSS_TP_RANKS}: cut to "
+          f"{FULL_RUN_CROSS_TP_UNITS} pattern unit in the full run, the "
+          f"serves on 1x{CROSS_TP_RANKS} and the shard timings left out; "
+          f"--only cross_tp runs {MLLAMA_UNITS} units, both serves and the "
+          f"timings")
+    cross_tp = cross_tp_phase(torch, FULL_RUN_CROSS_TP_UNITS, serve=False)
+    lap("whisper-small and llama-3.2-vision on 1x2")
 
     rcfg = ALL_ARCHS["rwkv6-3b"]
     params = init_params(torch, rcfg)
@@ -4942,6 +5244,14 @@ def main(argv=None) -> int:
     for dt, r in zamba_tp["models"]["1x2"].items():
         for rank, c in enumerate(r.get("counts", [])):
             paths[f"{ZAMBA} {dt} fed steps on 1x2, rank {rank}"] = c
+    for name in (WHISPER, MLLAMA):
+        paths[f"{name} serve on a 1x1 mesh"] = \
+            cross_tp["mesh_1x1"][name]["mesh_1x1"]["counts"]
+        paths[f"{name} serve before its mesh runs"] = \
+            cross_tp["meshless_counts"][name]
+        for dt, r in cross_tp["models"][name]["1x2"].items():
+            for rank, c in enumerate(r.get("counts", [])):
+                paths[f"{name} {dt} fed steps on 1x2, rank {rank}"] = c
     # rwkv_scan_bwd is the gradient of the rwkv_scan TPU kernel, which the
     # JAX package takes by autodiff of its jnp scan (no Pallas backward).
     replaces = {"flash_decode": "src/repro/kernels/flash_decode/kernel.py:74",
@@ -4993,6 +5303,7 @@ def main(argv=None) -> int:
                 zamba_tp["kernels"]["flash_decode_partial"]
             entry["zamba2_tp"] = {k: v for k, v in zamba_tp.items()
                                   if k != "kernels"}
+            entry["cross_tp"] = cross_tp
             entry["long_context"] = long_fd
             entry["paged_pool"] = z["pool"]
             for m, cp in cross_prof.items():

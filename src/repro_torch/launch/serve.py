@@ -16,6 +16,10 @@ mesh.
         --arch granite-moe-3b-a800m --mesh 1x2       # likewise, 4 experts a rank
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --arch zamba2-1.2b --mesh 1x2           # likewise, 4 SSM heads a rank
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch whisper-small --mesh 1x2     # likewise, 8 of 16 frames a rank
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch llama-3.2-vision-90b --mesh 1x2  # likewise, 2 of 4 heads a rank
 
 The PyTorch counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device``. It serves the dense and MoE families (a KV cache), rwkv6 (a
@@ -50,11 +54,14 @@ over the batch axes, so every rank records the same tokens. On a
 ``model`` axis of several ranks the dense and MoE families decode tensor-
 and context-parallel, the MoE's experts split over the ranks
 (``models/transformer.py``, ``models/moe.py``), rwkv6 on its heads
-(``models/rwkv6.py``) and zamba2 on its SSM heads, each rank's parts of
+(``models/rwkv6.py``), zamba2 on its SSM heads, each rank's parts of
 its packed in_proj and conv laid out once by :func:`place_params`, the
-shared block's KV cache split by sequence (``models/zamba2.py``); the VLM
-and audio families are refused there, and so is a shape that does not
-split (reduced rwkv6-3b's one head). The MoE family's routing groups
+shared block's KV cache split by sequence (``models/zamba2.py``), and
+whisper and llama-3.2-vision tensor- and context-parallel, their cross
+KV (never filled by this driver) split by sequence where the axis
+divides it and whole on every rank where it does not
+(``models/whisper.py``, ``models/mllama.py``); a shape that does not
+split is refused (reduced rwkv6-3b's one head). The MoE family's routing groups
 span the batch axes' rows, as the reference's span the whole batch, so
 its slots must split evenly over them. On ``cuda`` a mesh holds one
 card.

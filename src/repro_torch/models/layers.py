@@ -20,10 +20,14 @@ each rank projects with its shards of the weights (its own heads, its
 columns of the SwiGLU), the heads are gathered, each rank attends over its
 slots of a KV cache split by sequence (``cached_attention_update``), and
 the row-parallel products are summed over the ranks
-(``distributed/sharding.py``'s collectives). The training forward on such
-a mesh (``self_attention`` with ``mesh``) runs each rank's query heads
-only, through the autograd collectives, so its gradients are each rank's
-shards (``models/transformer.py``).
+(``distributed/sharding.py``'s collectives). A cross KV (whisper's
+frames, mllama's vision tokens) is split by sequence too where the axis
+divides it, every head whole, and whole on every rank where it does not
+(``cross_decode_attention``, ``cross_kv_layout``), as the reference lays
+it out. The training forward on such a mesh (``self_attention`` with
+``mesh``) runs each rank's query heads only, through the autograd
+collectives, so its gradients are each rank's shards
+(``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -314,18 +318,88 @@ def cross_attention(params: dict, x: torch.Tensor, kv_input: torch.Tensor,
 
 
 def cross_decode_attention(q: torch.Tensor, xk: torch.Tensor,
-                           xv: torch.Tensor) -> torch.Tensor:
+                           xv: torch.Tensor, mesh=None,
+                           seq_len: Optional[int] = None) -> torch.Tensor:
     """One query token against a cross KV computed once per request.
-    q: (b, h, 1, hd); xk/xv: (b, h_kv, S, hd), every slot valid. Returns
-    (b, h, 1, hd) in q's dtype, through the flash-decode kernel at
-    pos = S - 1. The reference's ``attention_scores`` casts the
-    probabilities to the cache's dtype before the second product; the
-    kernel keeps them in fp32, so a bf16 cache agrees to bf16 rounding and
-    an fp32 one to fp32 rounding."""
+    q: (b, h, 1, hd); xk/xv: (b, h_kv, S_loc, hd), every slot valid;
+    ``seq_len``: the whole cross KV's S (default: its own length). Returns
+    (b, h, 1, hd) in q's dtype. The reference's ``attention_scores``
+    casts the probabilities to the cache's dtype before the second
+    product; the kernel keeps them in fp32, so a bf16 cache agrees to bf16
+    rounding and an fp32 one to fp32 rounding.
+
+    The cross KV is laid out as the reference's ``cache_specs`` and
+    divisibility rule lay it out (:func:`cross_kv_layout`): where the
+    mesh's ``model`` axis holds n > 1 ranks that divide S it is split by
+    sequence, every head whole, and this rank attends over all of its S /
+    n slots through ``flash_decode_partial``, the ranks' partials merged
+    by their softmax statistics (:func:`merge_partials`); otherwise it is
+    whole and the flash-decode kernel runs at pos = S - 1, as without a
+    mesh. On such a mesh `q` holds this rank's query heads: they are
+    gathered over ``model`` for the attention and the output is cut back
+    to them, as in :func:`decode_attention`."""
+    n = model_size(mesh)
+    nq = q.shape[1]
+    if n > 1:
+        q = all_gather(q, mesh, TP_AXIS, 1)
     b, hq, _, hd = q.shape
-    out = flash_decode(q.reshape(b, hq, hd).contiguous(), xk, xv,
-                       xk.shape[2] - 1)
-    return out.reshape(b, hq, 1, hd)
+    S = xk.shape[2] if seq_len is None else seq_len
+    split = n > 1 and S % n == 0
+    if xk.shape[2] != (S // n if split else S):
+        raise ValueError(f"cross_decode_attention: a cross KV of {S} slots "
+                         f"over {n} ranks of the model axis holds "
+                         f"{S // n if split else S} a rank, not "
+                         f"{xk.shape[2]}")
+    q3 = q.reshape(b, hq, hd).contiguous()
+    if split:
+        out = merge_partials(*flash_decode_partial(q3, xk, xv, S // n),
+                             mesh).to(q.dtype)
+    else:
+        out = flash_decode(q3, xk, xv, S - 1)
+    out = out.reshape(b, hq, 1, hd)
+    return _own_heads(out, nq, mesh) if n > 1 else out
+
+
+def cross_kv_layout(k: torch.Tensor, v: torch.Tensor, heads: int,
+                    mesh=None) -> tuple:
+    """The cross KV of one layer as the decode step reads it on `mesh`:
+    k, v (b, h, S, hd) of every slot, h this rank's heads or all `heads`
+    -> every head and, where ``model`` holds n > 1 ranks that divide S,
+    this rank's S / n slots (the reference's ``cache_specs`` under its
+    divisibility rule); all S otherwise. Heads split over ``model`` are
+    gathered in one collective for k and v together."""
+    n = model_size(mesh)
+    if n == 1:
+        return k, v
+    if k.shape[1] < heads:
+        kv = all_gather(torch.stack([k, v]), mesh, TP_AXIS, 2)
+        k, v = kv[0], kv[1]
+    S = k.shape[2]
+    if S % n == 0:
+        start = model_rank(mesh) * (S // n)
+        k, v = (t[:, :, start:start + S // n] for t in (k, v))
+    return k.contiguous(), v.contiguous()
+
+
+def merge_partials(out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   mesh) -> torch.Tensor:
+    """The attention over a sequence split by ``model``, from each rank's
+    partial over its shard (``flash_decode_partial``: out (b, h, hd), row
+    maxima m and sums l (b, h) in fp32): one all-reduce max of the maxima
+    and one all-reduce sum of the weighted outputs and sums packed
+    together (the reference's pmax and two psums). Returns (b, h, hd) in
+    fp32."""
+    hd = out.shape[-1]
+    w = l * torch.exp(m - all_reduce_max(m, mesh, TP_AXIS))
+    acc = all_reduce_sum(torch.cat([w[..., None] * out.float(),
+                                    w[..., None]], -1), mesh, TP_AXIS)
+    return acc[..., :hd] / torch.clamp(acc[..., hd:], min=1e-30)
+
+
+def _own_heads(x: torch.Tensor, nq: int, mesh) -> torch.Tensor:
+    """This rank's `nq` heads (dim 1) of `x`, which holds every rank's."""
+    r = model_rank(mesh)
+    return x[:, r * nq:(r + 1) * nq]
 
 
 def cached_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int,
@@ -342,13 +416,11 @@ def cached_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int,
     Where ``model`` holds n > 1 ranks and divides S, rank r holds slots
     r * S / n onwards: it writes the new token only if it owns ``slot``,
     attends over its valid slots through ``flash_decode_partial`` and the
-    ranks merge with one all-reduce max of the row maxima and one
-    all-reduce sum of the weighted outputs and sums (the reference's pmax
-    and two psums, here packed into one). Else, as where the mesh is
-    absent, the caches are whole and the local path runs. The reference
-    takes its shard_map branch on a ``model`` axis of one rank too (the
-    same math); here that axis takes the local path, so that a 1x1 mesh
-    is the meshless step, launch for launch."""
+    ranks merge their partials (:func:`merge_partials`). Else, as where
+    the mesh is absent, the caches are whole and the local path runs. The
+    reference takes its shard_map branch on a ``model`` axis of one rank
+    too (the same math); here that axis takes the local path, so that a
+    1x1 mesh is the meshless step, launch for launch."""
     S = k_cache.shape[2] if seq_len is None else seq_len
     n = model_size(mesh)
     if n == 1 or S % n:
@@ -365,12 +437,8 @@ def cached_attention_update(q, k_new, v_new, k_cache, v_cache, pos: int,
         k_cache[:, :, slot - start] = k_new[:, :, 0].to(k_cache.dtype)
         v_cache[:, :, slot - start] = v_new[:, :, 0].to(v_cache.dtype)
     n_valid = min(max(pos + 1 - start, 0), S_loc)
-    out, m, l = flash_decode_partial(q.reshape(b, hq, hd).contiguous(),
-                                     k_cache, v_cache, n_valid)
-    w = l * torch.exp(m - all_reduce_max(m, mesh, TP_AXIS))
-    acc = all_reduce_sum(torch.cat([w[..., None] * out.float(),
-                                    w[..., None]], -1), mesh, TP_AXIS)
-    out = acc[..., :hd] / torch.clamp(acc[..., hd:], min=1e-30)
+    out = merge_partials(*flash_decode_partial(
+        q.reshape(b, hq, hd).contiguous(), k_cache, v_cache, n_valid), mesh)
     return out.to(q.dtype).reshape(b, hq, 1, hd)
 
 
@@ -426,8 +494,7 @@ def decode_attention(params: dict, x: torch.Tensor, cfg,
     out = cached_attention_update(q, k, v, k_cache, v_cache, pos, slot, mesh,
                                   seq_len)
     if tp:
-        r = model_rank(mesh)
-        out = out[:, r * nq:(r + 1) * nq]
+        out = _own_heads(out, nq, mesh)
     out = out.transpose(1, 2).reshape(b, 1, -1)
     out = matmul(out, params["wo"])
     return all_reduce_sum(out, mesh, TP_AXIS) if tp else out
@@ -443,13 +510,19 @@ def swiglu(params: dict, x: torch.Tensor, mm=matmul) -> torch.Tensor:
               params["w_down"])
 
 
-def gelu_mlp(params: dict, x: torch.Tensor, mm=matmul) -> torch.Tensor:
+def gelu_mlp(params: dict, x: torch.Tensor, mm=matmul,
+             mesh=None) -> torch.Tensor:
     """Biased GELU MLP with the tanh approximation (``jax.nn.gelu``'s
     default; torch's default is the exact erf form); `mm` is the
-    product."""
-    return mm(F.gelu(mm(x, params["w_up"]) + params["b_up"],
-                     approximate="tanh"), params["w_down"]) \
-        + params["b_down"]
+    product. With a `mesh` (a ``model`` axis of several ranks at decode)
+    `params` hold this rank's columns of w_up and b_up and rows of
+    w_down: the product with w_down is summed over the ranks before the
+    whole b_down is added, once."""
+    y = mm(F.gelu(mm(x, params["w_up"]) + params["b_up"],
+                  approximate="tanh"), params["w_down"])
+    if mesh is not None:
+        y = all_reduce_sum(y, mesh, TP_AXIS)
+    return y + params["b_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -28,14 +28,16 @@ recomputes each layer (block) in the backward, as the reference's
 tuples of the parameters and the decode state
 (``distributed/sharding.py`` places them on a mesh). ``init_decode_state``
 and ``decode`` take a ``mesh`` (default none: the meshless step): each
-rank decodes its rows of the batch, and the dense, MoE, SSM and hybrid
-families also decode on a ``model`` axis of several ranks: the dense and
-MoE families tensor- and context-parallel, the MoE's experts split by
-``moe_param_specs`` (``models/transformer.py``, ``models/moe.py``),
-rwkv6 on its heads (``models/rwkv6.py``), zamba2 on its SSM heads with
-its packed in_proj and conv laid out by a rank's parts
-(``place_decode_params``, ``models/zamba2.py``); the VLM and audio
-families raise there (:func:`check_decode_mesh`). ``forward`` and
+rank decodes its rows of the batch, and every family also decodes on a
+``model`` axis of several ranks: the dense and MoE families tensor- and
+context-parallel, the MoE's experts split by ``moe_param_specs``
+(``models/transformer.py``, ``models/moe.py``), rwkv6 on its heads
+(``models/rwkv6.py``), zamba2 on its SSM heads with its packed in_proj
+and conv laid out by a rank's parts (``place_decode_params``,
+``models/zamba2.py``), and the VLM and audio families tensor- and
+context-parallel with their cross KV split by sequence where the axis
+divides it and whole elsewhere (``models/mllama.py``,
+``models/whisper.py``). ``forward`` and
 ``loss`` take a ``mesh`` too (default none): where the ``model`` axis
 holds several ranks, the dense, MoE, SSM and hybrid families compute on
 each rank's shards of the parameters (the training forward on shards);
@@ -54,7 +56,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry_configs import ALL_ARCHS
-from ..distributed.sharding import (batch_rows, constrain_like, data_rows,
+from ..distributed.sharding import (constrain_like, data_rows,
                                     local_tree, model_size)
 from . import mllama, rwkv6, transformer, whisper, zamba2
 
@@ -84,21 +86,20 @@ def _tfm_decode(params, cfg, batch, state, pos, mesh=None):
                                    mesh)
 
 
-# The families that decode on a model axis of several ranks.
-TP_DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# The families that decode on a model axis of several ranks: all of them.
+TP_DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_decode_mesh(cfg, model: int) -> None:
-    """Raise where `cfg`'s family has no tensor-parallel decode (the VLM
-    and audio families) and the mesh's ``model`` axis holds `model` > 1
-    ranks. (A shape of the other families that does not split is refused
-    by their decode state, placement or step, with the reason.)"""
+    """Raise where `cfg`'s family has no tensor-parallel decode and the
+    mesh's ``model`` axis holds `model` > 1 ranks; every family has one
+    now (:data:`TP_DECODE_FAMILIES`). A shape that does not split is
+    refused by the family's decode state, placement or step, with the
+    reason (reduced rwkv6-3b's one head, zamba2's SSM heads)."""
     if model > 1 and cfg.family not in TP_DECODE_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family decodes on a model axis "
-            f"of one rank only; a model axis of {model} waits for ROADMAP "
-            f"Queue 1 item 4c (tensor-parallel decode of the whisper and "
-            f"mllama families)")
+            f"of one rank only")
 
 
 def _rwkv_forward(params, cfg, batch, remat, mesh=None):
@@ -154,8 +155,9 @@ def _mllama_forward(params, cfg, batch, remat):
                           batch["vision_embeds"], remat)
 
 
-def _mllama_decode(params, cfg, batch, state, pos):
-    return mllama.decode_step(params, cfg, batch["tokens"], state, pos)
+def _mllama_decode(params, cfg, batch, state, pos, mesh=None):
+    return mllama.decode_step(params, cfg, batch["tokens"], state, pos,
+                              mesh)
 
 
 def _whisper_forward(params, cfg, batch, remat):
@@ -163,8 +165,9 @@ def _whisper_forward(params, cfg, batch, remat):
                            remat)
 
 
-def _whisper_decode(params, cfg, batch, state, pos):
-    return whisper.decode_step(params, cfg, batch["tokens"], state, pos)
+def _whisper_decode(params, cfg, batch, state, pos, mesh=None):
+    return whisper.decode_step(params, cfg, batch["tokens"], state, pos,
+                               mesh)
 
 
 _TRANSFORMER = dict(init=transformer.init, forward=_tfm_forward,
@@ -255,23 +258,18 @@ class ModelAdapter:
     def init_decode_state(self, batch: int, max_seq: int,
                           dtype=torch.bfloat16, device="cuda",
                           tp: int = 1, mesh=None) -> dict:
-        """The decode state of `batch` rows; on a `mesh` this rank's share
-        (its rows, and for the dense and MoE families the KV cache's
-        shard, ``transformer.init_cache``; for rwkv6 its heads of the
-        state, ``rwkv6.init_state``)."""
+        """The decode state of `batch` rows; on a `mesh` this rank's share:
+        its rows, and on a ``model`` axis of several ranks its shard of the
+        KV cache (the dense, MoE, VLM and audio families; the cross KV of
+        the last two too, where the axis divides it), its heads of
+        rwkv6's state, or zamba2's by its parts (each family's
+        ``init_cache`` or ``init_state``)."""
         if mesh is None:
             return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
                                            device, tp)
         check_decode_mesh(self.cfg, model_size(mesh))
-        if self._fns is _TRANSFORMER:
-            return transformer.init_cache(self.cfg, batch, max_seq, dtype,
-                                          device, tp, mesh)
-        if self.cfg.family in ("ssm", "hybrid"):
-            return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
-                                           device, tp, mesh)
-        start, stop = batch_rows(batch, mesh)
-        return self._fns["init_state"](self.cfg, stop - start, max_seq,
-                                       dtype, device, tp)
+        return self._fns["init_state"](self.cfg, batch, max_seq, dtype,
+                                       device, tp, mesh)
 
     def decode(self, params: dict, batch: dict, state: dict, pos: int,
                mesh=None):
@@ -280,10 +278,8 @@ class ModelAdapter:
         if mesh is None:
             return self._fns["decode"](params, self.cfg, batch, state, pos)
         check_decode_mesh(self.cfg, model_size(mesh))
-        if self.cfg.family in TP_DECODE_FAMILIES:
-            return self._fns["decode"](params, self.cfg, batch, state, pos,
-                                       mesh)
-        return self._fns["decode"](params, self.cfg, batch, state, pos)
+        return self._fns["decode"](params, self.cfg, batch, state, pos,
+                                   mesh)
 
     def place_decode_params(self, params: dict, mesh, tp: int) -> dict:
         """This rank's decode parameters from `params` (the same on every

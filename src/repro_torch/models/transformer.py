@@ -275,12 +275,9 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     window and the cache is a ring buffer. `tp` changes nothing: the KV
     heads are not padded (``padded_kv_heads``).
 
-    On a `mesh`, this rank's shard under ``cache_specs`` by
-    ``constrain_entries``' rule: its rows of the batch
-    (``sharding.batch_rows``) and, where ``model`` holds n > 1 ranks that
-    divide S, its S / n slots. A cache split by sequence is a DTensor
-    (its storage the shard, its shape the whole cache's), so that the step
-    knows the whole S; any other is the plain local tensor. The MoE
+    On a `mesh`, this rank's shard under ``cache_specs``
+    (:func:`mesh_cache`): its rows of the batch and, where ``model`` holds
+    n > 1 ranks that divide S, its S / n slots. The MoE
     family's routing groups take the rows as split over every batch axis
     (``moe.route``), so there the batch must divide over their ranks."""
     hd = cfg.resolved_head_dim
@@ -294,19 +291,34 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
         raise ValueError(f"{cfg.name}: a batch of {batch} rows does not "
                          f"split over the {ranks} ranks of the batch axes, "
                          f"which the MoE family's routing groups span")
-    start, stop = batch_rows(batch, mesh)
+    return mesh_cache({"k": shape, "v": shape}, cache_specs(cfg)["k"],
+                      dtype, device, mesh)
+
+
+def mesh_cache(shapes: dict, spec: tuple, dtype, device, mesh) -> dict:
+    """Zeroed caches {name: whole shape (layers, b, h, S, hd)}, each this
+    rank's shard on `mesh` under `spec` (a cache spec: batch over the DP
+    axes, sequence over ``model``) by ``constrain_entries``' rule: its rows
+    of the batch (``sharding.batch_rows``) and, where ``model`` holds n >
+    1 ranks that divide the cache's S, its S / n slots. A cache split by
+    sequence is a DTensor (its storage the shard, its shape the whole
+    cache's), so that the step knows the whole S; any other is the plain
+    local tensor."""
     n = model_size(mesh)
-    split = n > 1 and S % n == 0
-    local_shape = (cfg.n_layers, stop - start, cfg.n_kv_heads,
-                   S // n if split else S, hd)
-    cache = {k: torch.zeros(local_shape, dtype=dtype, device=device)
-             for k in ("k", "v")}
-    if not split:
-        return cache
-    places = placements(mesh, constrain_entries(
-        cache_specs(cfg)["k"], shape, mesh_axis_sizes(mesh)))
-    return {k: DTensor.from_local(t, mesh, places, run_check=False)
-            for k, t in cache.items()}
+    out = {}
+    for name, shape in shapes.items():
+        start, stop = batch_rows(shape[1], mesh)
+        S = shape[3]
+        split = n > 1 and S % n == 0
+        t = torch.zeros((shape[0], stop - start, shape[2],
+                         S // n if split else S) + tuple(shape[4:]),
+                        dtype=dtype, device=device)
+        if split:
+            places = placements(mesh, constrain_entries(
+                spec, shape, mesh_axis_sizes(mesh)))
+            t = DTensor.from_local(t, mesh, places, run_check=False)
+        out[name] = t
+    return out
 
 
 def cache_specs(cfg) -> dict:

@@ -24,8 +24,13 @@ serve driver, as the reference's, never calls it.
 Parameters are a dict of tensors with the reference's structure, the
 per-layer ``encoder`` and ``decoder`` leaves stacked along a leading layer
 dim. ``encode`` and ``forward`` take the reference's ``remat`` option (each
-encoder and decoder block recomputed in the backward); its
-``param_specs``/``cache_specs`` wait for the distributed slice.
+encoder and decoder block recomputed in the backward). ``param_specs`` and
+``cache_specs`` are the reference's: on a mesh whose ``model`` axis holds
+several ranks, ``decode_step`` computes on each rank's shards (its heads,
+its columns of the MLP, its vocab rows of the tied embedding) and its
+slots of the self KV, and its frames of the cross KV where the axis
+divides them (``init_cache``, ``precompute_cross_kv`` with ``mesh``). The
+encoder and ``forward`` on shards are the training slice's.
 """
 from __future__ import annotations
 
@@ -33,13 +38,15 @@ import math
 
 import torch
 
-from ..distributed.sharding import padded_heads, padded_vocab
-from .layers import (CHUNKED_ATTN_THRESHOLD, attention_scores,
+from ..distributed.sharding import (TP_AXIS, all_gather, all_reduce_sum,
+                                    local, model_size, padded_heads,
+                                    padded_vocab)
+from .layers import (CHUNKED_ATTN_THRESHOLD, _own_heads, attention_scores,
                      cached_attention_update, causal_mask, chunked_attention,
-                     cross_decode_attention, dense_init, gelu_mlp, layernorm,
-                     matmul)
-from .transformer import (_dtype, _index, _layers, _stack, _stacked,
-                          remat_call)
+                     cross_decode_attention, cross_kv_layout, dense_init,
+                     gelu_mlp, layernorm, matmul)
+from .transformer import (_dtype, _embed, _index, _layers, _stack, _stacked,
+                          mesh_cache, remat_call)
 
 
 def sinusoid_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -239,74 +246,159 @@ def forward(params: dict, cfg, tokens: torch.Tensor, frames: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda", tp: int = 1) -> dict:
+               device="cuda", tp: int = 1, mesh=None) -> dict:
     """Zeroed stacked caches: self KV (L, b, h, max_seq, hd) and cross KV
     (L, b, h, n_audio_frames, hd), the KV heads being the query heads,
     padded to a multiple of `tp` as init pads them. bf16 by default, also
-    for an fp32 model, as in the reference."""
+    for an fp32 model, as in the reference.
+
+    On a `mesh`, this rank's shard under ``cache_specs``
+    (``transformer.mesh_cache``): its rows of the batch and, where
+    ``model`` holds n > 1 ranks, the self KV's max_seq / n slots and the
+    cross KV's n_audio_frames / n frames wherever n divides them, every
+    head whole (padded to a multiple of n, as ``init(tp=n)`` pads
+    them)."""
     hd, L = cfg.resolved_head_dim, cfg.n_layers
-    nH = padded_heads(cfg.n_heads, tp)
+    n = model_size(mesh)
+    nH = padded_heads(cfg.n_heads, n if n > 1 else tp)
     self_shape = (L, batch, nH, max_seq, hd)
     cross_shape = (L, batch, nH, cfg.n_audio_frames, hd)
-    return {"k": torch.zeros(self_shape, dtype=dtype, device=device),
-            "v": torch.zeros(self_shape, dtype=dtype, device=device),
-            "xk": torch.zeros(cross_shape, dtype=dtype, device=device),
-            "xv": torch.zeros(cross_shape, dtype=dtype, device=device)}
+    shapes = {"k": self_shape, "v": self_shape, "xk": cross_shape,
+              "xv": cross_shape}
+    if mesh is None:
+        return {k: torch.zeros(s, dtype=dtype, device=device)
+                for k, s in shapes.items()}
+    return mesh_cache(shapes, cache_specs(cfg)["k"], dtype, device, mesh)
 
 
 def cache_specs(cfg) -> dict:
-    """The caches' spec tuples (the reference's)."""
+    """The caches' spec tuples (the reference's): batch over the DP axes,
+    the self KV's slots and the cross KV's frames over ``model``."""
     s = (None, ("pod", "data"), None, "model", None)
     return {"k": s, "v": s, "xk": s, "xv": s}
 
 
-def precompute_cross_kv(params: dict, cfg, enc_out: torch.Tensor) -> tuple:
+def precompute_cross_kv(params: dict, cfg, enc_out: torch.Tensor,
+                        mesh=None) -> tuple:
     """Each decoder layer's cross K and V of the encoder output, stacked:
     (L, b, h, n_frames, hd) each, in the projection's dtype (the caller
-    writes them into a cache of its own dtype)."""
+    writes them into a cache of its own dtype).
+
+    On a `mesh` whose ``model`` axis holds n > 1 ranks, `params` are this
+    rank's shards (``param_specs(tp=n)``) and `enc_out` its rows of the
+    batch: it projects its heads for every frame, then each layer's heads
+    are gathered over ``model`` and this rank keeps its frames of the
+    cache's layout (``layers.cross_kv_layout``: n_frames / n of them
+    where n divides n_frames, else all)."""
     dec = params["decoder"]
+    heads = padded_heads(cfg.n_heads, model_size(mesh))
     ks, vs = [], []
     for i in range(dec["ln_attn"]["w"].shape[0]):
         xa = _index(dec, i)["xattn"]
-        ks.append(_heads(cfg, enc_out, xa["wk"]))
-        vs.append(_heads(cfg, enc_out, xa["wv"], xa["bv"]))
+        k, v = cross_kv_layout(_heads(cfg, enc_out, xa["wk"]),
+                               _heads(cfg, enc_out, xa["wv"], xa["bv"]),
+                               heads, mesh)
+        ks.append(k)
+        vs.append(v)
     return torch.stack(ks), torch.stack(vs)
+
+
+def _out(out: torch.Tensor, p: dict, mesh) -> torch.Tensor:
+    """The attention output (b, h, 1, hd) through wo, summed over
+    ``model`` where `mesh` is given (wo this rank's rows), then bo, which
+    the reference leaves whole, added once."""
+    b = out.shape[0]
+    y = matmul(out.transpose(1, 2).reshape(b, 1, -1), p["wo"])
+    if mesh is not None:
+        y = all_reduce_sum(y, mesh, TP_AXIS)
+    return y + p["bo"]
 
 
 def dec_block_step(cfg, h: torch.Tensor, bp: dict, kc: torch.Tensor,
                    vc: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
-                   pos: int) -> torch.Tensor:
+                   pos: int, mesh=None, seq_len: int | None = None,
+                   frames: int | None = None) -> torch.Tensor:
     """One decoder layer of the decode step: h (b, 1, d) -> (b, 1, d);
     writes the new token's K/V into this layer's caches kc/vc at `pos` and
-    attends over the cross KV xk/xv."""
-    b = h.shape[0]
+    attends over the cross KV xk/xv.
+
+    With a `mesh` (a ``model`` axis of several ranks) `bp` holds this
+    rank's shards: the columns of wq, bq, wk, wv, bv (its own heads) and
+    w_up, b_up, the rows of wo and w_down. q, k and v are gathered over
+    ``model`` in one collective for ``cached_attention_update`` on kc/vc,
+    this rank's shards of caches of `seq_len` slots; the cross attention
+    takes xk/xv as ``layers.cross_decode_attention`` lays out a cross KV
+    of `frames` frames; each row-parallel product is summed over the
+    ranks before its whole bias is added."""
     a, xa = bp["attn"], bp["xattn"]
     x = _ln(bp["ln_attn"], h)
     q = _heads(cfg, x, a["wq"], a["bq"], matmul)
     k = _heads(cfg, x, a["wk"], None, matmul)
     v = _heads(cfg, x, a["wv"], a["bv"], matmul)
-    out = cached_attention_update(q, k, v, kc, vc, pos, pos)
-    out = out.transpose(1, 2).reshape(b, 1, -1)
-    h = h + (matmul(out, a["wo"]) + a["bo"])
+    nq = q.shape[1]
+    if mesh is not None:
+        q, k, v = all_gather(torch.stack([q, k, v]), mesh, TP_AXIS,
+                             2).unbind(0)
+    out = cached_attention_update(q, k, v, kc, vc, pos, pos, mesh, seq_len)
+    if mesh is not None:
+        out = _own_heads(out, nq, mesh)
+    h = h + _out(out, a, mesh)
     xq = _heads(cfg, _ln(bp["ln_xattn"], h), xa["wq"], xa["bq"], matmul)
-    xout = cross_decode_attention(xq, xk, xv).transpose(1, 2).reshape(
-        b, 1, -1)
-    h = h + (matmul(xout, xa["wo"]) + xa["bo"])
-    return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h))
+    h = h + _out(cross_decode_attention(xq, xk, xv, mesh, frames), xa, mesh)
+    return h + gelu_mlp(bp["mlp"], _ln(bp["ln_mlp"], h), mesh=mesh)
 
 
 def decode_step(params: dict, cfg, token: torch.Tensor, cache: dict,
-                pos: int) -> tuple:
+                pos: int, mesh=None) -> tuple:
     """token: (b, 1) int; pos: host int. Returns (logits (b, 1, V_padded),
-    cache); the self KV is written in place, the cross KV only read."""
+    cache); the self KV is written in place, the cross KV only read.
+
+    On a `mesh` the tokens, the cache (``init_cache(mesh=...)``) and the
+    logits are this rank's rows. Where ``model`` holds one rank the step
+    is the meshless one. Where it holds n > 1, `params` are this rank's
+    shards under ``param_specs(tp=n)`` (heads padded by ``init(tp=n)``;
+    :func:`check_decode_shards`): the embedding looks up the tokens in its
+    vocab rows and sums over ``model`` (``transformer._embed``), each
+    layer runs tensor-parallel on its shards and context-parallel on the
+    caches' (:func:`dec_block_step`), and the tied head on its vocab rows
+    gives this rank's logits, gathered over ``model``."""
+    n = model_size(mesh)
+    tp = mesh if n > 1 else None
+    if tp is not None:
+        check_decode_shards(params, cfg, n)
     b = token.shape[0]
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
-    h = params["embed"][token] + sinusoid_pos(posb, cfg.d_model).to(
-        _dtype(cfg))
+    h = _embed(params["embed"], token, cfg, tp) + sinusoid_pos(
+        posb, cfg.d_model).to(_dtype(cfg))
     dec = params["decoder"]
-    for i in range(cache["k"].shape[0]):
-        h = dec_block_step(cfg, h, _index(dec, i), cache["k"][i],
-                           cache["v"][i], cache["xk"][i], cache["xv"][i],
-                           pos)
+    kc, vc, xk, xv = (local(cache[key]) for key in ("k", "v", "xk", "xv"))
+    S, frames = cache["k"].shape[3], cache["xk"].shape[3]
+    for i in range(kc.shape[0]):
+        h = dec_block_step(cfg, h, _index(dec, i), kc[i], vc[i], xk[i],
+                           xv[i], pos, tp, S, frames)
     h = _ln(params["ln_dec"], h)
-    return matmul(h, tied_head(params["embed"])), cache
+    logits = matmul(h, tied_head(params["embed"]))
+    if tp is not None:
+        logits = all_gather(logits, tp, TP_AXIS, -1)
+    return logits, cache
+
+
+def check_decode_shards(params: dict, cfg, n: int) -> None:
+    """Raise unless `params` hold this rank's shards of a ``model`` axis of
+    n ranks as ``init(tp=n)`` and ``param_specs`` make them: 1/n of the
+    decoder's query, key and value heads (self and cross), of its MLP's
+    width and of the embedding's vocab rows."""
+    dec = params["decoder"]
+    cols = padded_heads(cfg.n_heads, n) * cfg.resolved_head_dim
+    got = {f"decoder/{a}/{w}": dec[a][w].shape[-1]
+           for a in ("attn", "xattn") for w in ("wq", "wk", "wv")}
+    want = dict.fromkeys(got, cols // n)
+    got |= {"decoder/mlp/w_up": dec["mlp"]["w_up"].shape[-1],
+            "embed": params["embed"].shape[0]}
+    want |= {"decoder/mlp/w_up": cfg.d_ff // n,
+             "embed": padded_vocab(cfg.vocab) // n}
+    if got != want:
+        raise ValueError(f"{cfg.name}: split leaves hold {got} on this "
+                         f"rank; a model axis of {n} ranks needs {want} "
+                         f"(parameters from init(tp={n}), placed by "
+                         f"param_specs)")

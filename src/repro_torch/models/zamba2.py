@@ -66,22 +66,20 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from ..configs.base import SSMConfig
 from ..distributed.sharding import (TP_AXIS, all_gather, all_reduce_sum,
-                                    batch_rows, constrain_entries,
-                                    constrain_like, copy_to_model,
+                                    batch_rows, constrain_like,
+                                    copy_to_model,
                                     gather_from_model,
                                     gather_parts_for_model, local,
-                                    local_tree, mesh_axis_sizes, model_rank,
-                                    model_size, padded_heads, padded_vocab,
-                                    placements, reduce_from_model,
-                                    slice_for_model)
+                                    local_tree, model_rank, model_size,
+                                    padded_heads, padded_vocab,
+                                    reduce_from_model, slice_for_model)
 from .layers import attn_params, dense_init, ffn_params, matmul, rmsnorm
 from .transformer import (_block_forward, _dtype, _embed, _index, _layers,
                           _stack, _stacked, attn_specs, block_decode,
-                          ffn_specs, remat_call)
+                          ffn_specs, mesh_cache, remat_call)
 
 # Tokens of one prompt whose SSD updates (B outer x) * dt are formed at once
 # in _ssd_scan: 4 x 64 tokens of zamba2-1.2b take 256 MB in fp32.
@@ -497,8 +495,8 @@ def init_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     channels of its parts (its heads' x and all of B and C: the
     reference's ``state_specs`` split the channels evenly, which is not a
     rank's heads; see :func:`_parts`) and, where n divides S, its S / n
-    slots of the KV cache, a DTensor whose shape is the whole cache's (as
-    ``transformer.init_cache`` makes it)."""
+    slots of the KV cache, a DTensor whose shape is the whole cache's
+    (``transformer.mesh_cache``)."""
     s = _ssm(cfg)
     _, n_shared = _pattern(cfg)
     S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
@@ -506,12 +504,9 @@ def init_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
     n = model_size(mesh)
     if n > 1:
         _refuse(cfg, n)
-    rows = batch
-    if mesh is not None:
-        start, stop = batch_rows(batch, mesh)
-        rows = stop - start
-    split = n > 1 and S % n == 0
-    kv = (n_shared, rows, cfg.n_kv_heads, S // n if split else S, hd)
+    start, stop = batch_rows(batch, mesh)
+    rows = stop - start
+    kv = (n_shared, batch, cfg.n_kv_heads, S, hd)
     state = {
         "ssm": torch.zeros((cfg.n_layers, rows, ssm_heads(cfg) // n,
                             s.head_dim, s.state_dim), dtype=torch.float32,
@@ -519,17 +514,12 @@ def init_state(cfg, batch: int, max_seq: int, dtype=torch.bfloat16,
         "conv": torch.zeros((cfg.n_layers, rows, s.conv_width - 1,
                              inner_dim(cfg) // n + 2 * s.state_dim),
                             dtype=_dtype(cfg), device=device),
-        "k": torch.zeros(kv, dtype=dtype, device=device),
-        "v": torch.zeros(kv, dtype=dtype, device=device),
     }
-    if split:
-        whole = (n_shared, batch, cfg.n_kv_heads, S, hd)
-        places = placements(mesh, constrain_entries(
-            state_specs(cfg)["k"], whole, mesh_axis_sizes(mesh)))
-        for key in ("k", "v"):
-            state[key] = DTensor.from_local(state[key], mesh, places,
-                                            run_check=False)
-    return state
+    if mesh is None:
+        return state | {key: torch.zeros(kv, dtype=dtype, device=device)
+                        for key in ("k", "v")}
+    return state | mesh_cache({"k": kv, "v": kv}, state_specs(cfg)["k"],
+                              dtype, device, mesh)
 
 
 def state_specs(cfg) -> dict:

@@ -1,5 +1,6 @@
-"""Worker processes for tests/test_torch_distributed.py and
-tests/test_torch_cp_attention.py. Each joins a gloo process group through
+"""Worker processes for tests/test_torch_distributed.py,
+tests/test_torch_cp_attention.py, tests/test_torch_zamba2_tp.py and
+tests/test_torch_cross_tp.py. Each joins a gloo process group through
 a ``FileStore`` (a file, no network), runs one job of the port on a mesh
 and, on rank 0, saves what the test compares. No JAX here: the workers
 import only the port."""
@@ -21,7 +22,7 @@ from repro_torch.distributed.elastic import elastic_resume
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
 from repro_torch.launch.mesh import make_mesh, parse_mesh
-from repro_torch.models import layers, moe, rwkv6
+from repro_torch.models import layers, mllama, moe, rwkv6, whisper
 from repro_torch.models.registry import get_adapter
 from repro_torch.train import optimizer
 from repro_torch.train.optimizer import _leaves, adamw_init, adamw_update
@@ -265,12 +266,17 @@ def resume(ckpt_dir, witness_path, n_devices):
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_SEQ = 4, 2, 8, 128
 MOE_SERVE_SLOTS = 4
 # The families whose serve loop the data-mesh test runs on 2x1 against one
-# process (test_data_mesh_serves_every_family).
+# process (test_data_mesh_serves_every_family): each rank its rows of the
+# recurrent, SSM, conv and cross states.
 DATA_ONLY_ARCHS = ("zamba2-1.2b", "whisper-small", "llama-3.2-vision-90b")
-# The serve driver on a model axis of several ranks: granite and zamba2
-# serve there (their code), reduced rwkv6-3b's one head does not split
-# (the refusal).
-MODEL_AXIS_DRIVERS = ("granite-moe-3b-a800m", "rwkv6-3b", "zamba2-1.2b")
+# The families whose serve loop also runs on a model axis of several ranks
+# against one process, their cross KV on shards.
+CROSS_ARCHS = ("whisper-small", "llama-3.2-vision-90b")
+# The serve driver on a model axis of several ranks: granite, zamba2,
+# whisper and mllama serve there (their code), reduced rwkv6-3b's one head
+# does not split (the refusal).
+MODEL_AXIS_DRIVERS = ("granite-moe-3b-a800m", "rwkv6-3b", "zamba2-1.2b") \
+    + CROSS_ARCHS
 
 
 def serve_slots(arch) -> int:
@@ -295,12 +301,14 @@ def _data_mesh(text):
 
 def _served(arch, mesh) -> dict:
     """The serve loop's greedy tokens for reduced fp32 `arch` from its own
-    seeded init, on `mesh` (None: one process)."""
+    seeded init, on `mesh` (None: one process; its shards where its model
+    axis holds several ranks)."""
     cfg = fp32_cfg(arch)
     ad = get_adapter(cfg)
     params = ad.init(torch.Generator().manual_seed(0))
     if mesh is not None:
-        params = port_serve.place_params(ad, params, mesh, 1)
+        params = port_serve.place_params(ad, params, mesh,
+                                         sharding.model_size(mesh))
     run = port_serve.serve(cfg, params, port_serve.make_requests(
         SERVE_REQUESTS, 16, SERVE_NEW, cfg.vocab, 0), SERVE_SLOTS,
         SERVE_MAX_SEQ, "cpu", mesh)
@@ -374,6 +382,9 @@ def serve_meshes(inputs_path, mesh_texts):
         if tp > 1:
             res["drivers"] = {arch: _driver(arch, text)
                               for arch in MODEL_AXIS_DRIVERS}
+            res["cross_tokens"] = {arch: (_served(arch, mesh),
+                                          _served(arch, None))
+                                   for arch in CROSS_ARCHS}
     return out
 
 
@@ -494,6 +505,80 @@ def zamba2_decode(inputs_path, mesh_texts):
     return out
 
 
+# --- whisper and mllama on a model axis (tests/test_torch_cross_tp.py) -----
+
+def cross_decode(inputs_path, mesh_texts):
+    """For each mesh and each case of the inputs ({name: (arch, overrides
+    of reduced(), seeded parameters, the cross input (encoder output or
+    vision embeddings) of every row, tokens (steps, b, 1), max_seq)}):
+    the parameters placed as the serve driver places them, an fp32 state
+    whose cross KV ``precompute_cross_kv(mesh)`` fills from this rank's
+    rows, then the decode steps, the logits gathered over the data axis;
+    from every rank its rows and model rank, its cross KV, the local
+    shapes and bytes of the placed parameters and of the state, and its
+    kernel calls and collectives step by step (:func:`_calls`). Then, for
+    each arch of the inputs' plain parameters ({arch: the reference
+    driver's parameters}), the serve loop's greedy tokens on the mesh and
+    the serve driver's exit code there (its own seeded bf16 model)."""
+    cases, plain = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for text in mesh_texts:
+        mesh = _data_mesh(text)
+        tp = parse_mesh(text)[-1]
+        res = out[text] = {}
+        for name, (arch, over, params, cross_in, tokens, max_seq) \
+                in cases.items():
+            cfg = reduced(ALL_ARCHS[arch], dtype="float32", **over)
+            ad = get_adapter(cfg)
+            mod = whisper if cfg.family == "audio" else mllama
+            placed = port_serve.place_params(ad, params, mesh, tp)
+            b = tokens.shape[1]
+            r0, r1 = sharding.batch_rows(b, mesh)
+            state = ad.init_decode_state(b, max_seq, dtype=torch.float32,
+                                         device="cpu", mesh=mesh)
+            logits, steps = [], []
+            with torch.inference_mode():
+                xk, xv = mod.precompute_cross_kv(placed, cfg,
+                                                 cross_in[r0:r1], mesh)
+                sharding.local(state["xk"]).copy_(xk)
+                sharding.local(state["xv"]).copy_(xv)
+                for pos, tok in enumerate(tokens):
+                    calls = []
+                    with _calls(calls):
+                        lg, state = ad.decode(placed, {"tokens": tok[r0:r1]},
+                                              state, pos, mesh)
+                    logits.append(lg)
+                    steps.append(calls)
+            record = {
+                "rows": (r0, r1), "model_rank": sharding.model_rank(mesh),
+                "xk": xk.numpy(), "xv": xv.numpy(),
+                "local": {"/".join(p): tuple(t.shape)
+                          for p, t in _leaves(placed)},
+                "bytes": sum(t.numel() * t.element_size()
+                             for _, t in _leaves(placed)),
+                "state": {k: tuple(sharding.local(t).shape)
+                          for k, t in state.items()},
+                "seq": {k: t.shape[3] for k, t in state.items()},
+                "steps": steps}
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, record)
+            res[name] = {"logits": sharding.all_gather(
+                torch.stack(logits), mesh, sharding.BATCH_AXES, 1).numpy(),
+                "ranks": ranks}
+        for arch, driver_params in plain.items():
+            cfg = fp32_cfg(arch)
+            ad = get_adapter(cfg)
+            run = port_serve.serve(
+                cfg, port_serve.place_params(ad, driver_params, mesh, tp),
+                port_serve.make_requests(SERVE_REQUESTS, 16, SERVE_NEW,
+                                         cfg.vocab, 0),
+                SERVE_SLOTS, SERVE_MAX_SEQ, "cpu", mesh)
+            res[arch] = {"tokens": {r.rid: r.out_tokens
+                                    for r in run.batcher.completed},
+                         "driver": _driver(arch, text)}
+    return out
+
+
 def gather_parts_adjoint(seed):
     """``sharding.gather_parts_for_model`` in fp64 on the model axis, its
     indices overlapping between the ranks: <f(x), y> and <x, f*(y)>, each
@@ -534,7 +619,8 @@ JOBS = {"meshes": meshes, "adamw_2x2": adamw_2x2, "save_2x2": save_2x2,
         "resume": resume, "serve_meshes": serve_meshes,
         "cp_attention": cp_attention, "tp_collectives": tp_collectives,
         "zamba2_decode": zamba2_decode,
-        "gather_parts_adjoint": gather_parts_adjoint}
+        "gather_parts_adjoint": gather_parts_adjoint,
+        "cross_decode": cross_decode}
 
 # Seconds a spawn may take before its ranks are killed and its test fails:
 # the slowest spawn of these tests took under 90 s on one xdist worker.

@@ -24,8 +24,10 @@ window, its ring buffer wrapping) decode eight steps on 2x2, 1x2 and
 single-process port and JAX's ``decode_step``; the serve loop on each
 mesh emits the reference driver's greedy tokens; each rank holds 1/model
 of every weight split over ``model`` and S/model cache slots; on 2x1 the
-other families serve their one-process tokens. A 1x1 mesh is the
-meshless step, call for call.
+other families serve their one-process tokens, and on 1x2 and 2x2 whisper
+and mllama do (their decode on shards is held against JAX in
+tests/test_torch_cross_tp.py). A 1x1 mesh is the meshless step, call for
+call.
 
 Tensor-parallel training (``train/train_step.py`` with ``shards``, the
 autograd collectives of ``distributed/sharding.py``): in the same spawns,
@@ -79,17 +81,20 @@ from repro_torch.distributed import elastic, sharding
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
-from repro_torch.models import layers, moe, registry, rwkv6, transformer
+from repro_torch.models import (layers, mllama, moe, registry, rwkv6,
+                                transformer, whisper)
 from repro_torch.models.registry import get_adapter
 from repro_torch.train.optimizer import _leaves
 from repro_torch.train.train_step import accumulate
 from test_torch_cp_attention import ModelAxis
+from test_torch_mllama import bridged as mllama_bridged
 from test_torch_prefill import _seed_biases_and_norms
 from test_torch_prefill import bridged_params as dense_bridged
 from test_torch_rwkv6 import _seed_block
 from test_torch_rwkv6 import bridged as rwkv_bridged
 from test_torch_train import GRAD_TOL, LOSS_TOL, OPT_TOL
 from test_torch_train import _batch as parity_batch
+from test_torch_whisper import bridged as whisper_bridged
 from test_torch_zamba2 import bridged as zamba_bridged
 
 ARCHS = ["qwen2-7b", "rwkv6-3b"]
@@ -871,33 +876,31 @@ def test_serve_driver_refuses_a_multi_card_mesh_on_cuda(monkeypatch):
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "granite-moe-3b-a800m",
                                   "zamba2-1.2b", "whisper-small",
                                   "llama-3.2-vision-90b"])
-def test_serve_driver_refuses_other_families_on_a_model_axis(runs, arch):
-    """whisper and mllama are refused on a model axis of 2 (item 4c)
-    before any process group is made. granite-moe-3b, rwkv6-3b and
-    zamba2 serve there: the serve driver's runs of reduced granite and
-    reduced zamba2 on 1x2 end with code 0 (zamba2's tokens are held
-    against the JAX driver's in tests/test_torch_zamba2_tp.py), and
+def test_serve_driver_on_a_model_axis_serves_what_splits(runs, arch):
+    """On 1x2 the serve driver runs reduced granite-moe-3b, zamba2,
+    whisper and mllama to exit code 0 (zamba2's tokens are held against
+    the JAX driver's in tests/test_torch_zamba2_tp.py, whisper's and
+    mllama's also in tests/test_torch_cross_tp.py); whisper's and
+    mllama's serve loops on 1x2 emit their one-process tokens, and
     rwkv6-3b at d_model 128 (2 heads) serves its one-process tokens on
     1x2; reduced rwkv6-3b's one head does not split, and the serve driver
     says so."""
-    if arch in worker.MODEL_AXIS_DRIVERS:
-        got = runs["serve"]["1x2"]["drivers"][arch]
-        if arch == "rwkv6-3b":
-            assert "heads" in got and "do not split" in got
-            arch = "rwkv6-3b-d128"
-        else:
-            assert got == 0
-        if arch == "zamba2-1.2b":
-            return
-        assert runs["serve"]["1x2"][arch]["tokens"] \
-            == runs["serve_ref"][arch]["tokens"]
+    got = runs["serve"]["1x2"]["drivers"][arch]
+    if arch == "rwkv6-3b":
+        assert "heads" in got and "do not split" in got
+        arch = "rwkv6-3b-d128"
+    else:
+        assert got == 0
+    if arch == "zamba2-1.2b":
         return
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
-                         "--mesh", "1x2"])
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        get_adapter(reduced(ALL_ARCHS[arch])).init_decode_state(
-            2, 16, device="cpu", mesh=ModelAxis(2))
+    if arch in worker.CROSS_ARCHS:
+        mesh_tokens, single_tokens = runs["serve"]["1x2"]["cross_tokens"][
+            arch]
+        assert mesh_tokens == single_tokens
+        assert len(single_tokens) == worker.SERVE_REQUESTS
+        return
+    assert runs["serve"]["1x2"][arch]["tokens"] \
+        == runs["serve_ref"][arch]["tokens"]
 
 
 def test_one_by_one_mesh_step_is_the_meshless_step(monkeypatch):
@@ -912,14 +915,18 @@ def test_one_by_one_mesh_step_is_the_meshless_step(monkeypatch):
 @pytest.mark.parametrize("arch,launched", [
     ("granite-moe-3b-a800m", {"rowstream_matmul", "flash_decode"}),
     ("rwkv6-3b", {"rowstream_matmul"}),
-    ("zamba2-1.2b", {"rowstream_matmul", "flash_decode"})])
+    ("zamba2-1.2b", {"rowstream_matmul", "flash_decode"}),
+    ("whisper-small", {"rowstream_matmul", "flash_decode"}),
+    ("llama-3.2-vision-90b", {"rowstream_matmul", "flash_decode"})])
 def test_one_by_one_mesh_step_is_the_meshless_step_for(monkeypatch, arch,
                                                        launched):
-    """The 1x1 check above for the MoE family, rwkv6 and zamba2: the same
-    calls, no collective (the MoE's routing gathers and expert sums,
-    rwkv6's head gather and row-parallel sums, zamba2's gated-norm and
-    out_proj sums included), bit-equal logits and tokens, and zamba2's
-    placement keeping the parameters' storage (no by-parts copy)."""
+    """The 1x1 check above for the MoE family, rwkv6, zamba2, whisper and
+    mllama: the same calls, no collective (the MoE's routing gathers and
+    expert sums, rwkv6's head gather and row-parallel sums, zamba2's
+    gated-norm and out_proj sums, whisper's and mllama's head gathers,
+    partial merges and row-parallel sums included), bit-equal logits and
+    tokens, and zamba2's placement keeping the parameters' storage (no
+    by-parts copy)."""
     assert _one_by_one_decode(monkeypatch, arch) == launched
 
 
@@ -935,6 +942,8 @@ def _one_by_one_decode(monkeypatch, arch) -> set:
                        (transformer, ("all_gather", "all_reduce_sum")),
                        (moe, ("all_gather", "all_reduce_sum",
                               "copy_to_model", "reduce_from_model")),
+                       (whisper, ("all_gather", "all_reduce_sum")),
+                       (mllama, ("all_gather", "all_reduce_sum")),
                        (torch.distributed, ("all_reduce", "all_gather"))):
         for name in names:
             fn = getattr(mod, name)
@@ -944,6 +953,10 @@ def _one_by_one_decode(monkeypatch, arch) -> set:
         _, cfg, p = rwkv_bridged(64)
     elif arch == "zamba2-1.2b":
         _, cfg, p = zamba_bridged("float32")
+    elif arch == "whisper-small":
+        _, cfg, p = whisper_bridged("float32")
+    elif arch == "llama-3.2-vision-90b":
+        _, cfg, p = mllama_bridged("float32")
     else:
         _, cfg, p = dense_bridged(arch)
     params = bridge.to_torch(p, "cpu")
